@@ -1,0 +1,206 @@
+"""Measurement blending: the hand-written CUDA kernel, its wrapper and its
+plain PyTorch version.
+
+`blend_core` is the port of surfelmeshing_tpu/ops/fusion.py::_blend_pallas
+(body `_blend_core`): observation-boundary feathering (reference
+kernels.cu:563-738).  On a CUDA tensor it launches csrc/blend.cu; on a CPU
+tensor it runs `blend_core_reference`, a torch transcription of
+`_blend_core` with the same shifts and order of operations.
+
+The kernel library is compiled with nvcc for sm_90a at first use, from
+csrc/blend.cu only, into build/kernels/ at the repository root.  The file
+name carries a hash of the source and the build flags, so a stale library
+is never loaded.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "blend.cu"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+# No --use_fast_math: the kernel's divisions must be IEEE divisions.
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+# Largest ring radius whose tile + halo fits the card's shared memory
+# (the kernel stores 25 bytes per pixel of a (32 + 2(r-1))^2 region).
+MAX_RADIUS = 33
+
+
+def _shifted(img: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
+    """img[y+dy, x+dx] with zero fill outside the image."""
+    h, w = img.shape
+    padded = F.pad(img, (1, 1, 1, 1))
+    return padded[1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
+
+
+def blend_core_reference(depth_f: torch.Tensor, supported: torch.Tensor,
+                         valid: torch.Tensor, avg: torch.Tensor,
+                         radius: int, scale: float) -> torch.Tensor:
+    """Plain PyTorch version of the blending kernel.
+
+    BFS feathering from measurement/surfel boundaries: raw depth is pulled
+    toward the average supporting-surfel depth with a weight decaying over
+    `radius` rings, as Jacobi iterations over the previous ring's snapshot.
+    All maps (H, W) f32; `supported` / `valid` are 0/1 masks.  Returns the
+    blended depth as f32 (callers floor and clip).
+    """
+    h, w = depth_f.shape
+    scale = float(np.float32(scale))
+
+    supported_b = supported > 0.5
+    valid_b = valid > 0.5
+    ys = torch.arange(h, device=depth_f.device)[:, None]
+    xs = torch.arange(w, device=depth_f.device)[None, :]
+    interior = (xs >= 1) & (ys >= 1) & (xs < w - 1) & (ys < h - 1)
+    eligible = interior & valid_b & supported_b
+
+    meas_border = torch.zeros((h, w), dtype=torch.bool, device=depth_f.device)
+    surf_border = torch.zeros_like(meas_border)
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            nb_valid = _shifted(valid, dy, dx) > 0.5
+            nb_supported = _shifted(supported, dy, dx) > 0.5
+            meas_border |= ~nb_valid
+            surf_border |= nb_valid & ~nb_supported
+    meas_border &= eligible
+    surf_border &= eligible
+
+    # Divide by a device tensor, not a Python float: CUDA torch turns
+    # division by a CPU scalar into multiplication by its reciprocal, which
+    # is not the IEEE division the kernel and the JAX package perform.
+    delta0 = avg - depth_f / torch.full_like(depth_f, scale)
+
+    # distance rings: 0 = untouched, 1..radius-1 = ring, 255 = unknown.
+    dist_map = torch.where(meas_border, 1.0,
+                           torch.where(eligible, 255.0, 0.0))
+    deltas = torch.where(meas_border, delta0, 0.0)
+    new_dist = torch.where(surf_border, 1.0, 0.0)
+    new_deltas = torch.where(surf_border, delta0, 0.0)
+
+    depth_f = torch.where(meas_border, torch.floor(scale * avg + 0.5),
+                          depth_f)
+
+    unsupported_target = interior & valid_b & ~supported_b
+
+    def ring_avg(dmap, dvals, ring):
+        ssum = torch.zeros_like(depth_f)
+        cnt = torch.zeros_like(depth_f)
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                at_ring = _shifted(dmap, dy, dx) == ring
+                ssum += torch.where(at_ring, _shifted(dvals, dy, dx), 0.0)
+                cnt += at_ring.to(torch.float32)
+        return ssum, cnt
+
+    for it in range(2, radius):
+        interp = (it - 1.0) / (radius - 1.0)
+        blend_w = float(np.float32(scale) * np.float32(1.0 - interp))
+
+        ssum, cnt = ring_avg(dist_map, deltas, it - 1)
+        grow = (dist_map == 255.0) & (cnt > 0)
+        avg_d = ssum / cnt.clamp_min(1.0)
+        dist_map = torch.where(grow, float(it), dist_map)
+        deltas = torch.where(grow, avg_d, deltas)
+        depth_f = torch.where(grow, depth_f + blend_w * avg_d + 0.5, depth_f)
+
+        nsum, ncnt = ring_avg(new_dist, new_deltas, it - 1)
+        ngrow = unsupported_target & (new_dist == 0.0) & (ncnt > 0)
+        navg = nsum / ncnt.clamp_min(1.0)
+        new_dist = torch.where(ngrow, float(it), new_dist)
+        new_deltas = torch.where(ngrow, navg, new_deltas)
+        depth_f = torch.where(ngrow, depth_f + blend_w * navg + 0.5, depth_f)
+
+    return depth_f
+
+
+def build_library() -> Path:
+    """Compile csrc/blend.cu into build/kernels/ unless a library built
+    from the same source and flags is already there; returns its path."""
+    source = _SOURCE.read_bytes()
+    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode())
+    path = BUILD_DIR / f"blend_{digest.hexdigest()[:16]}.so"
+    if path.exists():
+        return path
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(_SOURCE)],
+                       check=True, capture_output=True, text=True)
+        os.replace(tmp, path)      # atomic: concurrent builds agree
+    except subprocess.CalledProcessError as e:
+        raise RuntimeError(f"nvcc failed building {_SOURCE}:\n{e.stderr}") \
+            from e
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return path
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """The kernel library, built on first use and loaded once."""
+    lib = ctypes.CDLL(str(build_library()))
+    lib.blend_core_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_void_p]
+    lib.blend_core_launch.restype = ctypes.c_int
+    return lib
+
+
+def blend_core(depth_f: torch.Tensor, supported: torch.Tensor,
+               valid: torch.Tensor, avg: torch.Tensor,
+               radius: int, scale: float) -> torch.Tensor:
+    """Blended depth (f32, not yet floored) from the four (H, W) f32 maps.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel on
+    the current stream (no synchronisation) or raise.  Counts kernel
+    launches in `blend_core.launches`.
+    """
+    maps = (depth_f, supported, valid, avg)
+    if all(m.device.type == "cpu" for m in maps):
+        return blend_core_reference(depth_f, supported, valid, avg,
+                                    radius, scale)
+    device = depth_f.device
+    if device.type != "cuda":
+        raise ValueError(f"blend_core: unsupported device {device}")
+    for m in maps:
+        if m.device != device or m.dtype != torch.float32 or \
+                m.shape != depth_f.shape or m.dim() != 2 or \
+                not m.is_contiguous():
+            raise ValueError(
+                "blend_core: the four maps must be contiguous (H, W) "
+                "float32 tensors on one CUDA device")
+    if not 1 <= radius <= MAX_RADIUS:
+        raise ValueError(f"blend_core: radius {radius} outside "
+                         f"[1, {MAX_RADIUS}]")
+    height, width = depth_f.shape
+    out = torch.empty_like(depth_f)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = load_library().blend_core_launch(
+            depth_f.data_ptr(), supported.data_ptr(), valid.data_ptr(),
+            avg.data_ptr(), out.data_ptr(), height, width, radius,
+            float(scale), stream)
+    if err != 0:
+        raise RuntimeError(f"blend_core kernel launch failed: CUDA error "
+                           f"{err}")
+    blend_core.launches += 1
+    return out
+
+
+blend_core.launches = 0

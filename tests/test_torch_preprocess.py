@@ -1,0 +1,167 @@
+"""PyTorch port of the preprocessing passes vs the JAX package and the NumPy
+golden transcriptions of the CUDA kernels.
+
+Inputs come from numpy seeds (the same generators as test_preprocess.py) and
+go through both packages.  Tolerances:
+- bilateral: <= 1 depth unit on under 2% of pixels (the f32 exp differs in
+  its last bit between XLA and the port's f64-rounded exp);
+- outlier fusion, erosion, radii depth: exact;
+- normals: depth mismatch < 1%, normals within atol 1e-4 where depth agrees.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from surfelmeshing_tpu.io.synthetic import synthetic_rgbd_video
+from surfelmeshing_tpu.ops import preprocess as jpp
+from surfelmeshing_tpu_torch.ops import preprocess as tpp
+
+from golden_preprocess import (bilateral_golden, erode_golden, normals_golden,
+                               outlier_fusion_golden, radii_golden)
+from test_preprocess import CX, CY, FX, FY, H, W, make_depth
+
+torch.set_num_threads(1)
+
+
+def t(a):
+    return torch.from_numpy(np.ascontiguousarray(a).astype(
+        np.int32 if np.issubdtype(np.asarray(a).dtype, np.integer)
+        else np.float32))
+
+
+def as_i32(a):
+    a = a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    return a.astype(np.int32)
+
+
+def assert_bilateral_close(got, want):
+    diff = np.abs(as_i32(got) - as_i32(want))
+    assert diff.max() <= 1
+    assert (diff != 0).mean() < 0.02
+
+
+def outlier_setup(k=2):
+    depth = make_depth(1)
+    others = np.stack([make_depth(10 + i) for i in range(k)])
+    transforms = []
+    for i in range(k):
+        angle = 0.02 * (i + 1)
+        c, s = np.cos(angle), np.sin(angle)
+        transforms.append(np.array([[c, 0, s, 50.0 * i],
+                                    [0, 1, 0, -30.0],
+                                    [-s, 0, c, 20.0]], np.float32))
+    return depth, others, np.stack(transforms)
+
+
+@pytest.mark.parametrize("radius", [30.0, 1000.0])
+def test_bilateral_matches_jax_and_golden(radius):
+    depth = make_depth()
+    args = (3.0, 0.05, 2.0, 15000, radius)
+    got = tpp.bilateral_filter_and_cutoff(t(depth), *args)
+    assert got.dtype == torch.int32
+    assert_bilateral_close(got, jpp.bilateral_filter_and_cutoff(depth, *args))
+    assert_bilateral_close(got, bilateral_golden(depth, *args))
+
+
+@pytest.mark.parametrize("required", [None, 1, 2])
+def test_outlier_fusion_matches_jax(required):
+    depth, others, T = outlier_setup()
+    got = as_i32(tpp.outlier_depth_map_fusion(
+        t(depth), t(others), t(T), FX, FY, CX, CY, 0.02, required))
+    want = as_i32(jpp.outlier_depth_map_fusion(
+        depth, others, T, FX, FY, CX, CY, 0.02, required))
+    np.testing.assert_array_equal(got, want)
+    golden = outlier_fusion_golden(depth, others, T, FX, FY, CX, CY, 0.02,
+                                   required)
+    assert (got != golden).mean() < 0.02
+
+
+@pytest.mark.parametrize("radius", [0, 1, 2, 3])
+def test_erode_matches_jax_and_golden(radius):
+    depth = make_depth(4)
+    got = as_i32(tpp.erode_depth(t(depth), radius))
+    np.testing.assert_array_equal(got, as_i32(jpp.erode_depth(depth, radius)))
+    if radius:
+        np.testing.assert_array_equal(got, as_i32(erode_golden(depth,
+                                                               radius)))
+
+
+def test_normals_match_jax_and_golden():
+    depth = make_depth(6, hole_frac=0.05)
+    args = (85.0, 5000.0, FX, FY, CX, CY)
+    got_d, got_n = tpp.compute_normals_and_drop_bad_pixels(t(depth), *args)
+    got_d, got_n = as_i32(got_d), got_n.numpy()
+    for want_d, want_n in (
+            (as_i32(jpp.compute_normals_and_drop_bad_pixels(depth, *args)[0]),
+             np.asarray(jpp.compute_normals_and_drop_bad_pixels(depth,
+                                                                 *args)[1])),
+            (lambda d, n: (as_i32(d), n.transpose(2, 0, 1)))(
+                *normals_golden(depth, *args))):
+        assert (got_d != want_d).mean() < 0.01
+        agree = (got_d == want_d) & (want_d != 0)
+        np.testing.assert_allclose(got_n[:, agree], want_n[:, agree],
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("clamp", [np.inf, 2.0])
+def test_radii_match_jax_and_golden(clamp):
+    depth = make_depth(7, hole_frac=0.05)
+    args = (1.5, clamp, 5000.0, FX, FY, CX, CY)
+    got_d, got_r = tpp.compute_point_radii_and_remove_isolated(t(depth),
+                                                               *args)
+    want_d, want_r = jpp.compute_point_radii_and_remove_isolated(depth, *args)
+    np.testing.assert_array_equal(as_i32(got_d), as_i32(want_d))
+    np.testing.assert_allclose(got_r.numpy(), np.asarray(want_r), rtol=1e-6)
+    gold_d, gold_r = radii_golden(depth, *args)
+    np.testing.assert_array_equal(as_i32(got_d), as_i32(gold_d))
+    valid = as_i32(gold_d) != 0
+    np.testing.assert_allclose(got_r.numpy()[valid], gold_r[valid],
+                               rtol=1e-4)
+
+
+def synthetic_window():
+    """Frame 1 of a synthetic 64x48 video with frames 0 and 2 as its
+    outlier window, transforms in depth-unit space (pipeline convention)."""
+    video, _ = synthetic_rgbd_video(3, W, H, noise_sigma=0.002)
+    frames = [video.depth_frames[i] for i in range(3)]
+    depths = [np.asarray(f.get_image()).astype(np.uint16) for f in frames]
+    ref = frames[1].global_T_frame.scaled_translation(5000.0)
+    T = np.stack([(ref.inverse() * frames[i].global_T_frame
+                   .scaled_translation(5000.0)).inverse().matrix3x4()
+                  for i in (0, 2)]).astype(np.float32)
+    cam = video.depth_camera
+    return depths[1], np.stack([depths[0], depths[2]]), T, cam
+
+
+def test_preprocess_frame_matches_jax():
+    depth, others, T, cam = synthetic_window()
+    kwargs = dict(
+        sigma_xy=3.0, sigma_value_factor=0.05, radius_factor=2.0,
+        max_depth_u16=15000, depth_valid_region_radius=1000.0,
+        tolerance=0.02, required_inliers=None, erosion_radius=1,
+        observation_angle_threshold_deg=85.0, depth_scaling=5000.0,
+        point_radius_extension_factor=1.5, point_radius_clamp_factor=np.inf,
+        fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy)
+    got = tpp.preprocess_frame(t(depth), t(others), t(T), **kwargs)
+    want = jpp.preprocess_frame(depth, others, T, **kwargs)
+    # A +-1 bilateral unit (see module docstring) can flip a pixel or bend
+    # its neighbours' normals downstream: a tiny share may differ.
+    got_d, want_d = as_i32(got[0]), as_i32(want[0])
+    assert (got_d != want_d).mean() < 0.01
+    agree = (got_d == want_d) & (want_d != 0)
+    assert agree.sum() > 0.3 * H * W
+    normal_err = np.abs(got[1].numpy() - np.asarray(want[1])).max(axis=0)
+    assert (normal_err[agree] > 1e-4).mean() < 0.01
+    radius_err = np.abs(got[2].numpy() - np.asarray(want[2])) / \
+        np.maximum(np.abs(np.asarray(want[2])), 1e-12)
+    assert (radius_err[agree] > 1e-4).mean() < 0.01
+
+
+def test_float_to_int_cast_saturates():
+    """torch's float->int32 cast maps out-of-range values to INT_MIN; the
+    port's cast saturates like JAX's so huge coordinates stay off-image."""
+    x = torch.tensor([1e10, 3e9, -1e10, float("inf"), float("nan"), 7.9,
+                      -0.5, -1.5])
+    got = tpp.to_i32_trunc(x)
+    assert got.tolist() == [2 ** 30, 2 ** 30, -2 ** 30, 2 ** 30, 0, 7, 0, -1]
