@@ -2,39 +2,64 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one line:
+Phases, each printing one or more lines:
   1. device: requires CUDA (exits non-zero otherwise), prints the card and
      its power limit, turns TF32 off;
-  2. build: compiles the blending kernel from surfelmeshing_tpu_torch/csrc;
-  3. kernel: the kernel vs its plain PyTorch version on seeded maps
-     (640x480 radius 12, 24x32 radius 6), both timed at 640x480;
+  2. build: compiles csrc/blend.cu and csrc/gather.cu, one nvcc each,
+     started together;
+  3. kernel: the blending kernel vs its plain PyTorch version on seeded
+     maps (640x480 radius 12, 24x32 radius 6), both timed at 640x480;
   4. slice: ReconstructionPipeline at 640x480 with 500k surfel capacity and
      default settings over the 24-frame synthetic video, every frame with a
      full outlier window fused; launch counts prove the kernel ran;
   5. kernel on the slice's own blending inputs (captured through the taps);
   6. the same port slice on the GPU and on the CPU (plain versions) at
-     160x120 over 6 fused frames, held to the CPU tests' tolerance.
+     160x120 over 6 fused frames, held to the CPU tests' tolerance;
+  7. gather: the gather probe (tools/gather_probe.py of the port) at its
+     sizes, every variant timed with CUDA events, launch counts proving the
+     three kernels ran; then each kernel bit for bit against its plain
+     version on sources with NaN-pattern, -0.0 and denormal rows and
+     out-of-range indices, at the probe's sizes and at N = 1 and N = 257;
+  8. e2e: preprocessing + fusion + asynchronous meshing at 640x480 / 500k
+     over the 40-frame synthetic video (tools/bench_e2e.py's run_config):
+     8 warm-up frames with a full and a delta snapshot drained, then every
+     frame submits a snapshot when the mesher is idle; afterwards one delta
+     snapshot is split into its device part and its copies to the host
+     (slice and e2e also print their peak device memory);
+  9. app: the port's application on tests/fixtures/tum_micro at 640x480
+     with async meshing, exporting mesh, point cloud and checkpoint.
 Then one JSON line describing the kernels and, last, the result line.
 Any failed check ends the run with a non-zero exit code.
 """
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from surfelmeshing_tpu.config import SurfelMeshingConfig
 from surfelmeshing_tpu.io.synthetic import synthetic_rgbd_video
-from surfelmeshing_tpu_torch.ops import blend
+from surfelmeshing_tpu_torch.app import main as app_main
+from surfelmeshing_tpu_torch.io.checkpoint import load_checkpoint
+from surfelmeshing_tpu_torch.meshing import MeshingDriver
+from surfelmeshing_tpu_torch.ops import blend, cuda_build
 from surfelmeshing_tpu_torch.ops import fusion as F
+from surfelmeshing_tpu_torch.ops import gather as G
 from surfelmeshing_tpu_torch.pipeline import ReconstructionPipeline
+from surfelmeshing_tpu_torch.tools import gather_probe
 
 SCALE = 5000.0
 KERNEL_TOL = 1.0          # depth units after the floor
 WARMUP_FRAMES = 4
+KERNEL_SOURCES = ("blend", "gather")
+FIXTURE = Path(__file__).resolve().parent / "tests" / "fixtures" / "tum_micro"
 
 
 class SmokeFailure(Exception):
@@ -132,6 +157,7 @@ def phase_slice(device):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
 
+    torch.cuda.reset_peak_memory_stats()
     blend.blend_core.launches = 0
     fused = 0
     for i in range(video.frame_count):
@@ -160,7 +186,8 @@ def phase_slice(device):
           f"{int(pipe.state.overflow_count)}, {ms_frame:.3f} ms/frame "
           f"(CUDA events over {timed} frames after {WARMUP_FRAMES} warm-up; "
           f"host wall {1000 * wall / timed:.3f} ms/frame), median surface "
-          f"distance {1000 * float(np.median(dist)):.3f} mm")
+          f"distance {1000 * float(np.median(dist)):.3f} mm, {peak_mib()} "
+          f"MiB peak device memory allocated")
     check(fused == len(fused_frames), "not every full-window frame fused")
     check(count > 0, "no surfels")
     check(int(pipe.state.overflow_count) == 0, "surfel overflow")
@@ -215,24 +242,250 @@ def phase_gpu_vs_cpu(device):
     check(close or (count_ok and dist < 5e-4), "GPU and CPU slices disagree")
 
 
+def phase_build():
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        paths = list(pool.map(cuda_build.build, KERNEL_SOURCES))
+    build_s = time.perf_counter() - t0
+    blend.load_library()
+    G.load_library()
+    built = ", ".join(f"csrc/{name}.cu -> {path.name}"
+                      for name, path in zip(KERNEL_SOURCES, paths))
+    print(f"[build] {built} in {build_s:.2f} s (nvcc, sm_90a, one process "
+          f"per source, started together)")
+
+
+GATHERS = (G.gather_rows, G.gather_rows3, G.gather_lane)
+
+
+def bits_equal(a: torch.Tensor, b) -> bool:
+    b = b if isinstance(b, torch.Tensor) else torch.from_numpy(b)
+    return torch.equal(a.contiguous().cpu().view(torch.int32),
+                       b.contiguous().cpu().view(torch.int32))
+
+
+def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    both = torch.isfinite(a) & torch.isfinite(b)
+    return float(torch.where(both, (a - b).abs(), 0.0).max())
+
+
+def phase_gather(device):
+    """-> ({kernel name: launches, ms, plain_ms, max_abs_err})."""
+    for fn in GATHERS:
+        fn.launches = 0
+    probe_ms = gather_probe.run_probe(device)
+    launches = {fn.__name__: fn.launches for fn in GATHERS}
+    for name, count in launches.items():
+        check(count > 0, f"{name} was not launched by the probe")
+    src, _, _, idx = gather_probe.make_inputs(device)
+    lane_src = src.t().contiguous().t()
+    lane_plain_ms = gather_probe.time_step(
+        lambda: G.gather_lane_reference(lane_src, idx), device)
+    print(f"[gather] probe at HW {gather_probe.HW} x {G.COLS}, N "
+          f"{gather_probe.N} (CUDA events, {gather_probe.REPEATS} launches "
+          f"after {gather_probe.WARMUP} warm-up): " + ", ".join(
+              f"{v} {ms:.4f} ms" for v, ms in probe_ms.items()) +
+          f", plain_lane {lane_plain_ms:.4f} ms; launches {launches}")
+
+    errs = {fn.__name__: 0.0 for fn in GATHERS}
+    for label, hw, n in (("probe sizes", gather_probe.HW, gather_probe.N),
+                         ("N=1", 97, 1), ("N=257", 97, 257)):
+        srcs, idx = gather_probe.special_inputs(hw, n, 7)
+        want = [s[np.clip(idx, 0, hw - 1)] for s in srcs]
+        srcs = [torch.from_numpy(s).to(device) for s in srcs]
+        idx = torch.from_numpy(idx).to(device)
+        lane_srcs = [s.t().contiguous().t() for s in srcs]
+        results = {
+            "gather_rows": ([G.gather_rows(srcs[0], idx)],
+                            [G.gather_rows_reference(srcs[0], idx)]),
+            "gather_rows3": (list(G.gather_rows3(srcs, idx)),
+                             list(G.gather_rows3_reference(srcs, idx))),
+            "gather_lane": ([G.gather_lane(lane_srcs[0], idx)],
+                            [G.gather_lane_reference(lane_srcs[0], idx)]),
+        }
+        torch.cuda.synchronize()
+        for name, (got, plain) in results.items():
+            for g, p, w in zip(got, plain, want):
+                check(bits_equal(p, w), f"{name} plain version differs from "
+                      f"numpy src[clip(idx)] ({label})")
+                check(bits_equal(g, p), f"{name} kernel differs from its "
+                      f"plain version ({label})")
+                errs[name] = max(errs[name], max_abs_err(g, p))
+        print(f"[gather] {label} (HW {hw}, N {n}, special rows and "
+              f"out-of-range indices): gather_rows, gather_rows3, "
+              f"gather_lane bit-identical to their plain versions and to "
+              f"numpy")
+    plain_for = {"gather_rows": probe_ms["plain"],
+                 "gather_rows3": probe_ms["plain3"],
+                 "gather_lane": lane_plain_ms}
+    kernel_for = {"gather_rows": probe_ms["kernel"],
+                  "gather_rows3": probe_ms["kernel3"],
+                  "gather_lane": probe_ms["kernel_lane"]}
+    return {name: dict(launches=launches[name], ms=kernel_for[name],
+                       plain_ms=plain_for[name], max_abs_err=errs[name])
+            for name in launches}
+
+
+def peak_mib() -> str:
+    return f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f}"
+
+
+def snapshot_split(pipe, last_frame: int, window: int) -> str:
+    """One delta snapshot taken apart: row selection and gather on the
+    device, then the device-to-host copies, each timed on the host clock
+    between synchronisations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    delta = F.meshing_snapshot_delta(pipe.state, last_frame, window)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for a in delta[:5]:
+        a.cpu()
+    t2 = time.perf_counter()
+    return (f"one {delta[5]}-row delta: select + gather "
+            f"{1000.0 * (t1 - t0):.3f} ms, device-to-host copies "
+            f"{1000.0 * (t2 - t1):.3f} ms")
+
+
+def phase_e2e(device):
+    """tools/bench_e2e.py::run_config at 500k on the port (no XLA compile
+    counter or rollback: nothing compiles inside the loop)."""
+    chunk, warmup = 4, 8
+    cfg = SurfelMeshingConfig(max_surfel_count=500_000,
+                              max_creations_per_frame=2 ** 15,
+                              restrict_fps_to=0)
+    video, _ = synthetic_rgbd_video(40, 640, 480, noise_sigma=0.002)
+    torch.cuda.reset_peak_memory_stats()
+    pipe = ReconstructionPipeline(cfg, video.depth_camera, device)
+    mesher = MeshingDriver(cfg)
+    half = cfg.outlier_filtering_frame_count // 2
+    lo, hi = half, video.frame_count - half
+    timed = range(lo + warmup, hi)
+    tags, frames = [], []
+
+    def submit(i):
+        tagged = pipe.snapshot_for_meshing(i)
+        tags.append(tagged[0])
+        frames.append(i)
+        mesher.submit_snapshot(tagged, i)
+
+    for i in range(lo, lo + warmup):
+        pipe.process_frame(video, i)
+        if (i - lo) % chunk == chunk - 1:
+            submit(i)
+            mesher.drain()
+    pipe.block_until_ready()
+    rows_before = pipe.snapshot_rows_shipped
+    snaps_before = len(tags)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for i in timed:
+        pipe.process_frame(video, i)
+        if mesher.idle():
+            submit(i)
+    end.record()
+    pipe.block_until_ready()
+    wall = time.perf_counter() - t0
+    mesher.drain()
+    tris = int(mesher.engine.triangle_count)
+    mesher.finish()
+    peak = peak_mib()
+    split = snapshot_split(pipe, frames[-1],
+                           cfg.regularization_frame_window_size)
+    snaps = len(tags) - snaps_before
+    rows = pipe.snapshot_rows_shipped - rows_before
+    surfels = pipe.surfel_count()
+    ms_wall = 1000.0 * wall / len(timed)
+    ms_events = start.elapsed_time(end) / len(timed)
+    stages = ", ".join(
+        f"{tag} {1000.0 * st.mean:.3f}" for tag, st in (
+            (tag, pipe.timing.stats(tag)) for tag in
+            ("preprocessing", "integration", "surfel_transfer")))
+    print(f"[e2e] 640x480, 500k capacity, async meshing: {len(timed)} timed "
+          f"frames after {warmup} warm-up; {ms_wall:.3f} ms/frame host wall "
+          f"({1000.0 / ms_wall:.2f} FPS), {ms_events:.3f} ms/frame CUDA "
+          f"events; {snaps} snapshots in the timed frames ({tags.count('delta')}"
+          f" delta of {len(tags)} in all), {rows} rows shipped, {tris} "
+          f"triangles, {surfels} surfels, overflow "
+          f"{int(pipe.state.overflow_count)}; mean host ms per call over "
+          f"the run: {stages}; {peak} MiB peak device memory allocated")
+    print(f"[e2e] after the timed frames, {split} (host clock)")
+    check(tris > 0, "e2e: no triangles")
+    check("delta" in tags, "e2e: no delta snapshot")
+    check(rows < max(snaps, 1) * surfels,
+          "e2e: delta snapshots shipped as many rows as full ones")
+    return ms_wall
+
+
+def phase_app(device):
+    """The port's application over the real-format fixture at 640x480."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp)
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        t0 = time.perf_counter()
+        try:
+            rc = app_main.main([
+                "--device", str(device), "--max_surfel_count", "500000",
+                "--pyramid_level", "0", "--outlier_filtering_frame_count",
+                "2", "--depth_erosion_radius", "1", "--restrict_fps_to",
+                "0", "--exit_after_processing",
+                "--export_mesh", str(out / "mesh.obj"),
+                "--export_point_cloud", str(out / "cloud.ply"),
+                "--save_checkpoint", str(out / "ckpt.npz"),
+                str(FIXTURE), "groundtruth.txt"])
+        finally:
+            os.chdir(cwd)
+        seconds = time.perf_counter() - t0
+        check(rc == 0, f"app exited with {rc}")
+        obj = (out / "mesh.obj").read_text()
+        faces = obj.count("\nf ")
+        vertices = obj.count("\nv ") + obj.startswith("v ")
+        ply = (out / "cloud.ply").read_bytes()
+        points = int(ply.split(b"element vertex ")[1].split(b"\n")[0])
+        state, frame = load_checkpoint(str(out / "ckpt.npz"), "cpu")
+    count = int(state.surfel_count)
+    live = int((state.pack[:count, F.RAD] >= 0).sum())
+    print(f"[app] tum_micro at 640x480, async meshing: rc {rc} in "
+          f"{seconds:.2f} s; OBJ {faces} faces, {vertices} vertices; PLY "
+          f"{points} points; checkpoint frame {frame}, {count} surfels "
+          f"({live} live)")
+    check(faces > 50, "app: OBJ has 50 faces or fewer")
+    check(points > 0, "app: empty PLY")
+    check(live == points == vertices,
+          "app: checkpoint, PLY and OBJ disagree on the live surfel count")
+
+
+def kernel_entry(name, source, replaces, launches, err, ms, plain_ms):
+    return {"name": name, "route": "cuda",
+            "source": f"surfelmeshing_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms}
+
+
 def main() -> int:
     name = phase_device()
     device = torch.device("cuda")
-    t0 = time.perf_counter()
-    blend.load_library()
-    build_s = time.perf_counter() - t0
-    print(f"[build] csrc/blend.cu -> {blend.build_library().name} in "
-          f"{build_s:.2f} s (nvcc, sm_90a)")
+    phase_build()
     err, ms, plain_ms = phase_kernel(device)
     launches, taps, radius = phase_slice(device)
     err = max(err, phase_slice_inputs(taps, radius))
     phase_gpu_vs_cpu(device)
-    print(json.dumps({"kernels": [{
-        "name": "blend_core", "route": "cuda",
-        "source": "surfelmeshing_tpu_torch/csrc/blend.cu",
-        "replaces": "surfelmeshing_tpu/ops/fusion.py:1715",
-        "launches": launches, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms}]}))
+    gathers = phase_gather(device)
+    phase_e2e(device)
+    phase_app(device)
+    replaces = {"gather_rows": "tools/gather_probe.py:55",
+                "gather_rows3": "tools/gather_probe.py:80",
+                "gather_lane": "tools/gather_probe.py:103"}
+    kernels = [kernel_entry("blend_core", "blend.cu",
+                            "surfelmeshing_tpu/ops/fusion.py:1715", launches,
+                            err, ms, plain_ms)]
+    kernels += [kernel_entry(k, "gather.cu", replaces[k], g["launches"],
+                             g["max_abs_err"], g["ms"], g["plain_ms"])
+                for k, g in gathers.items()]
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,351 @@
+"""Application driver of the port: the reference main loop
+(applications/surfel_meshing/src/surfel_meshing/main.cc:255-1760) on one
+explicit torch device.
+
+Usage:
+    python -m surfelmeshing_tpu_torch.app.main <dataset_folder_path> \
+        <trajectory_filename> [--device cuda|cpu] [flags...]
+
+Counterpart of surfelmeshing_tpu/app/main.py with the same flags
+(surfelmeshing_tpu.config): dataset playback with pose interpolation, depth
+preprocessing and surfel fusion on the device, asynchronous (or
+synchronous) meshing fed by delta snapshots, the FPS cap, keyframe
+recording, checkpoints, terminal controls, and OBJ / PLY export.  The
+device is never chosen silently: `--device` defaults to cuda and fails
+without a GPU.
+
+Not ported yet (each raises NotImplementedError when set):
+--create_video (and with it --show_input_images, which only acts on the
+video's frames), --live_viewer, --profile_dir.  The up-direction heuristic
+(main.cc:644-659) feeds only those viewers and is left out with them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import logging
+import sys
+import time
+
+from surfelmeshing_tpu.config import SurfelMeshingConfig, config_from_args
+from surfelmeshing_tpu.io.tum import read_tum_rgbd_dataset
+from surfelmeshing_tpu.utils.se3 import SE3
+from surfelmeshing_tpu.utils.spline import write_keyframes
+
+from .. import resolve_device
+from ..io.checkpoint import load_checkpoint, save_checkpoint
+from ..meshing import MeshingDriver
+from ..ops.fusion import regularize_only
+from ..pipeline import ReconstructionPipeline
+
+logger = logging.getLogger("surfelmeshing_tpu_torch")
+
+STATS_INTERVAL = 200
+# Options of the JAX application that the port refuses rather than ignores.
+UNPORTED_OPTIONS = ("create_video", "live_viewer_port", "profile_dir")
+
+
+def _invert_quaternions(video) -> None:
+    """Reference quirk preserved (main.cc:632-642): color frames get the
+    conjugated quaternion; depth frames additionally get the whole pose
+    inverted."""
+    for frame in video.color_frames:
+        q = frame.global_T_frame.q.copy()
+        frame.global_T_frame = SE3([-q[0], -q[1], -q[2], q[3]],
+                                   frame.global_T_frame.t)
+    for frame in video.depth_frames:
+        q = frame.global_T_frame.q.copy()
+        inverted = SE3([-q[0], -q[1], -q[2], q[3]], frame.global_T_frame.t)
+        frame.global_T_frame = inverted.inverse()
+
+
+def debug_triangulate_surfel(mesher, key: str, surfel_index: int) -> bool:
+    """The y/e per-surfel debug-triangulation keys (main.cc:1609-1627):
+    y = force re-triangulation of the surfel; e = reset every triangle
+    within its radius first, then re-triangulate.  Logs the surfel's
+    meshing state; False when the index is invalid."""
+    if mesher is None:
+        logger.warning("no meshing engine")
+        return False
+    mesher.drain()
+    eng = mesher.engine
+    info = eng.surfel_info(surfel_index)
+    if info is None:
+        logger.warning("surfel %d out of range (engine has %d)",
+                       surfel_index, eng.surfel_count)
+        return False
+    if key == "e":
+        logger.info("Retriangulating surfel %d (radius_squared: %g) ...",
+                    surfel_index, info["radius_sq"])
+        eng.remesh_triangles_at(surfel_index)
+    else:
+        logger.info("Trying to triangulate surfel %d ...", surfel_index)
+        eng.queue_for_remesh(surfel_index)
+    eng.triangulate()
+    after = eng.surfel_info(surfel_index)
+    _, nbrs = eng.find_neighbors(
+        info["position"], 4.0 * info["radius_sq"], max_count=64,
+        include_completed=True, include_free=True)
+    logger.info(
+        "surfel %d: state %d -> %d, triangles %d -> %d, fronts %d -> %d, "
+        "%d neighbors in 2r, self-check %d", surfel_index, info["state"],
+        after["state"], info["triangles"], after["triangles"],
+        info["fronts"], after["fronts"], len(nbrs),
+        eng.check_surfel_state(surfel_index))
+    return True
+
+
+def _set_regularizer_weight(cfg, pipe, weight: float) -> None:
+    cfg.regularizer_weight = weight
+    pipe.fusion_params = dataclasses.replace(pipe.fusion_params,
+                                             regularizer_weight=weight)
+    logger.info("regularizer_weight: %f", weight)
+
+
+def _terminal_controls(cfg, pipe, mesher, frame_index, input_pose,
+                       recorded_keyframes) -> str:
+    """Terminal key controls (main.cc:1548-1653; reference README
+    "Terminal controls"): Return = next frame, q = quit, r = run,
+    a/s = regularizer weight x1.1 / /1.1, d = one regularization iteration,
+    t = full retriangulation, p = save mesh now, k = record keyframe,
+    'y N' / 'e N' = per-surfel debug triangulation of surfel N."""
+    while True:
+        try:
+            cmd = input(
+                "[Return=step, q, r, a, s, d, t, p, k, y N, e N] > ").strip()
+        except EOFError:
+            return "quit"
+        if cmd == "":
+            return "step"
+        key = cmd[0].lower()
+        if key == "q":
+            return "quit"
+        if key == "r":
+            return "run"
+        if key in ("y", "e"):
+            parts = cmd.split()
+            try:
+                sel = int(parts[1])
+            except (IndexError, ValueError):
+                logger.warning("usage: %s <surfel_index>", key)
+                continue
+            debug_triangulate_surfel(mesher, key, sel)
+        elif key == "a":
+            _set_regularizer_weight(cfg, pipe, cfg.regularizer_weight * 1.1)
+        elif key == "s":
+            _set_regularizer_weight(cfg, pipe, cfg.regularizer_weight / 1.1)
+        elif key == "d":
+            logger.info("Regularization iteration ...")
+            pipe.state = regularize_only(pipe.state, frame_index,
+                                         pipe.fusion_params)
+        elif key == "t" and mesher is not None:
+            mesher.drain()
+            mesher.engine.full_retriangulation()
+            logger.info("full retriangulation: %d triangles",
+                        mesher.engine.triangle_count)
+        elif key == "p":
+            if cfg.export_mesh and mesher is not None:
+                mesher.drain()
+                mesher.export_obj(cfg.export_mesh, pipe)
+                logger.info("Wrote %s", cfg.export_mesh)
+            elif cfg.export_point_cloud:
+                pipe.export_point_cloud(cfg.export_point_cloud)
+                logger.info("Wrote %s", cfg.export_point_cloud)
+            else:
+                logger.warning("no --export_mesh/--export_point_cloud path")
+        elif key == "k":
+            recorded_keyframes.append((frame_index, input_pose))
+            logger.info("recorded keyframe at frame %d", frame_index)
+
+
+def _submit_snapshot(cfg, pipe, mesher, frame_index, last_index) -> None:
+    """Meshing pacing: asynchronous meshing takes a snapshot only when the
+    mesher is idle or about to finish, or at the last frame
+    (main.cc:1235-1254); synchronous meshing meshes inline every frame
+    (main.cc:1343-1389)."""
+    if cfg.asynchronous_triangulation:
+        if mesher.idle() or frame_index == last_index:
+            mesher.submit_snapshot(pipe.snapshot_for_meshing(frame_index),
+                                   frame_index)
+        return
+    mesher.submit_snapshot(pipe.snapshot_for_meshing(frame_index),
+                           frame_index)
+    mesher.drain()
+    if cfg.full_meshing_every_frame:
+        mesher.engine.full_retriangulation()
+
+
+def _write_outputs(cfg, pipe, mesher, last_frame, recorded_keyframes):
+    """Keyframes, checkpoint, timing logs, point cloud and mesh."""
+    if cfg.record_keyframes and recorded_keyframes:
+        write_keyframes(cfg.record_keyframes, recorded_keyframes)
+        logger.info("Wrote %d keyframes to %s", len(recorded_keyframes),
+                    cfg.record_keyframes)
+    if cfg.save_checkpoint and last_frame is not None:
+        save_checkpoint(cfg.save_checkpoint, pipe.state, last_frame)
+        logger.info("Wrote checkpoint %s (frame %d)", cfg.save_checkpoint,
+                    last_frame)
+    if cfg.log_timings:
+        with open(cfg.log_timings, "w") as f:
+            f.write("\n".join(pipe.timings_log_lines) + "\n")
+        # Meshing-thread timings go to their own file, like the reference
+        # (asynchronous_meshing.cc:158-165 writes timings_cpu.txt).
+        if mesher is not None and mesher.timings_log_lines:
+            with open("timings_cpu.txt", "w") as f:
+                f.write("\n".join(mesher.timings_log_lines) + "\n")
+    if cfg.export_point_cloud:
+        n = pipe.export_point_cloud(cfg.export_point_cloud)
+        logger.info("Wrote %s (%d points)", cfg.export_point_cloud, n)
+    if cfg.export_mesh:
+        if mesher is not None:
+            mesher.export_obj(cfg.export_mesh, pipe)
+            logger.info("Wrote %s", cfg.export_mesh)
+        else:
+            logger.warning("--export_mesh requested but meshing engine "
+                           "unavailable; skipping")
+
+
+def run(cfg: SurfelMeshingConfig, device) -> int:
+    """The application loop on `device`; returns the exit code."""
+    for name in UNPORTED_OPTIONS:
+        if getattr(cfg, name):
+            raise NotImplementedError(f"--{name.removesuffix('_port')} is "
+                                      "not ported yet")
+    if not cfg.dataset_folder_path:
+        print("error: dataset_folder_path is required", file=sys.stderr)
+        return 1
+    device = resolve_device(device)
+
+    video = read_tum_rgbd_dataset(
+        cfg.dataset_folder_path, cfg.trajectory_filename,
+        cfg.max_pose_interpolation_time_extent)
+    logger.info("Read dataset with %d frames", video.frame_count)
+    if video.frame_count == 0:
+        print("error: could not read dataset", file=sys.stderr)
+        return 1
+    if cfg.invert_quaternions:
+        _invert_quaternions(video)
+
+    end_frame = min(cfg.end_frame, video.frame_count)
+    half_window = cfg.outlier_filtering_frame_count // 2
+    pipe = ReconstructionPipeline(cfg, video.depth_camera, device)
+
+    resume_frame = None
+    if cfg.load_checkpoint:
+        state, resume_frame = load_checkpoint(cfg.load_checkpoint, device)
+        if state.pack.shape[0] != pipe.state.pack.shape[0]:
+            print("error: checkpoint capacity "
+                  f"{state.pack.shape[0]} != configured "
+                  f"{pipe.state.pack.shape[0]}", file=sys.stderr)
+            return 1
+        pipe.state = state
+        logger.info("resumed from %s at frame %d", cfg.load_checkpoint,
+                    resume_frame)
+
+    mesher = None
+    try:
+        mesher = MeshingDriver(cfg, log_timings=bool(cfg.log_timings))
+    except (ImportError, OSError) as exc:
+        logger.warning("meshing engine unavailable (%s); "
+                       "running fusion only", exc)
+
+    recorded_keyframes = []
+    frame_count_hits = 0
+    frame_count_misses = 0
+    target_dt = 1.0 / cfg.restrict_fps_to if cfg.restrict_fps_to > 0 else 0.0
+    last_frame = None
+
+    first_frame = cfg.start_frame
+    if resume_frame is not None:
+        first_frame = max(first_frame, resume_frame + 1)
+    last_index = end_frame - half_window - 1
+    for frame_index in range(first_frame, end_frame - half_window):
+        frame_start = time.perf_counter()
+        if pipe.process_frame(video, frame_index) is None:
+            continue
+        last_frame = frame_index
+        if mesher is not None:
+            _submit_snapshot(cfg, pipe, mesher, frame_index, last_index)
+
+        input_pose = video.depth_frames[frame_index].global_T_frame
+        if cfg.record_keyframes:
+            recorded_keyframes.append((frame_index, input_pose))
+        if cfg.log_timings:
+            pipe.log_frame_timings(frame_index)
+        if frame_index % STATS_INTERVAL == 0:
+            pipe.block_until_ready()
+            logger.info("frame %d: %d surfels, %d triangles", frame_index,
+                        pipe.surfel_count(),
+                        mesher.engine.triangle_count if mesher else 0)
+            if cfg.abort_on_surfel_overflow and \
+                    int(pipe.state.overflow_count) > 0:
+                # Reference parity: abort on exceeding max_surfel_count
+                # (README.md:105-107).
+                logger.error("max_surfel_count exceeded — aborting "
+                             "(--abort_on_surfel_overflow)")
+                return 1
+        if cfg.step_by_step_playback:
+            action = _terminal_controls(cfg, pipe, mesher, frame_index,
+                                        input_pose, recorded_keyframes)
+            if action == "quit":
+                break
+            if action == "run":
+                cfg.step_by_step_playback = False
+        # FPS cap (main.cc:1669-1692).
+        if target_dt > 0:
+            elapsed = time.perf_counter() - frame_start
+            if elapsed < target_dt:
+                frame_count_hits += 1
+                time.sleep(target_dt - elapsed)
+            else:
+                frame_count_misses += 1
+
+    pipe.block_until_ready()
+    overflow = int(pipe.state.overflow_count)
+    if overflow > 0:
+        # The reference aborts on exceeding --max_surfel_count
+        # (README.md:105-107); by default the partial map is kept and the
+        # overflow reported (--abort_on_surfel_overflow restores the abort).
+        logger.error("max_surfel_count exceeded: %d surfel creations were "
+                     "dropped — increase --max_surfel_count", overflow)
+        if cfg.abort_on_surfel_overflow:
+            return 1
+    logger.info("done: %d surfels, fps target hit %d / missed %d",
+                pipe.surfel_count(), frame_count_hits, frame_count_misses)
+    logger.info("%s", pipe.timing.report())
+
+    # Post-processing terminal controls (main.cc:1550: show_result &&
+    # is_last_frame); only when attached to an interactive terminal.
+    if cfg.show_result and sys.stdin.isatty() and last_frame is not None:
+        pose = video.depth_frames[last_frame].global_T_frame
+        while _terminal_controls(cfg, pipe, mesher, last_frame, pose,
+                                 recorded_keyframes) not in ("quit", "run"):
+            pass
+
+    if mesher is not None:
+        # Final snapshot so the mesh covers the last fused state
+        # (main.cc:1247-1254).
+        if last_frame is not None:
+            mesher.drain()
+            mesher.submit_snapshot(pipe.snapshot_for_meshing(last_frame),
+                                   last_frame)
+        mesher.finish(full_retriangulation=cfg.full_retriangulation_at_end)
+        logger.info("final mesh: %d triangles", mesher.engine.triangle_count)
+
+    _write_outputs(cfg, pipe, mesher, last_frame, recorded_keyframes)
+    return 0
+
+
+def main(argv=None) -> int:
+    logging.basicConfig(level=logging.INFO,
+                        format="%(levelname).1s %(message)s")
+    parser = argparse.ArgumentParser(add_help=False)
+    parser.add_argument("--device", default="cuda",
+                        help="torch device to run on (default: cuda)")
+    args, rest = parser.parse_known_args(argv)
+    return run(config_from_args(rest), args.device)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

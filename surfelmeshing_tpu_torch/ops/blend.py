@@ -7,32 +7,21 @@ kernels.cu:563-738).  On a CUDA tensor it launches csrc/blend.cu; on a CPU
 tensor it runs `blend_core_reference`, a torch transcription of
 `_blend_core` with the same shifts and order of operations.
 
-The kernel library is compiled with nvcc for sm_90a at first use, from
-csrc/blend.cu only, into build/kernels/ at the repository root.  The file
-name carries a hash of the source and the build flags, so a stale library
-is never loaded.
+The kernel library is compiled from csrc/blend.cu at first use
+(ops/cuda_build.py).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "blend.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-# No --use_fast_math: the kernel's divisions must be IEEE divisions.
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+from . import cuda_build
+
 # Largest ring radius whose tile + halo fits the card's shared memory
 # (the kernel stores 25 bytes per pixel of a (32 + 2(r-1))^2 region).
 MAX_RADIUS = 33
@@ -125,35 +114,10 @@ def blend_core_reference(depth_f: torch.Tensor, supported: torch.Tensor,
     return depth_f
 
 
-def build_library() -> Path:
-    """Compile csrc/blend.cu into build/kernels/ unless a library built
-    from the same source and flags is already there; returns its path."""
-    source = _SOURCE.read_bytes()
-    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode())
-    path = BUILD_DIR / f"blend_{digest.hexdigest()[:16]}.so"
-    if path.exists():
-        return path
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(_SOURCE)],
-                       check=True, capture_output=True, text=True)
-        os.replace(tmp, path)      # atomic: concurrent builds agree
-    except subprocess.CalledProcessError as e:
-        raise RuntimeError(f"nvcc failed building {_SOURCE}:\n{e.stderr}") \
-            from e
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return path
-
-
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """The kernel library, built on first use and loaded once."""
-    lib = ctypes.CDLL(str(build_library()))
+    lib = ctypes.CDLL(str(cuda_build.build("blend")))
     lib.blend_core_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,

@@ -973,6 +973,17 @@ def _regularize(params, pack, neighbors, nbr_dist, frame_index):
     return pack, neighbors, torch.where(valid2, nbr_dist_sq, math.inf)
 
 
+def regularize_only(state: SurfelState, frame_index: int,
+                    params: FusionParams) -> SurfelState:
+    """Standalone regularization iteration (CUDASurfelReconstruction::
+    Regularize, cuda_surfel_reconstruction.cc:322-337; driven by the 'd'
+    terminal key, main.cc:1573-1580).  Returns a new state."""
+    pack, neighbors, nbr_dist = _regularize(
+        params, state.pack, state.neighbors, state.nbr_dist, frame_index)
+    return dataclasses.replace(state, pack=pack, neighbors=neighbors,
+                               nbr_dist=nbr_dist)
+
+
 # ---------------------------------------------------------------------------
 # Export.
 # ---------------------------------------------------------------------------
@@ -983,3 +994,44 @@ def export_vertices(state: SurfelState):
     merged = state.pack[:, RAD] < 0
     pos = torch.where(merged[:, None], math.nan, state.pack[:, SX:SZ + 1])
     return pos, colors_u8(state)
+
+
+def meshing_snapshot(state: SurfelState):
+    """The SoA snapshot consumed by the meshing engine, the fields the
+    reference downloads in TransferAllToCPU
+    (cuda_surfel_reconstruction.cc:339-359): (smooth (N, 3), radius_sq
+    (N,), normal (N, 3), stamps (N,) int32, surfel_count), all on the
+    state's device."""
+    return (smooth_positions(state), radii_sq(state), normals(state),
+            update_stamps(state), state.surfel_count)
+
+
+def meshing_snapshot_delta(state: SurfelState, last_snap_frame: int,
+                           window: int):
+    """Changed-rows snapshot for the meshing engine: index and payload of
+    the live rows that can have changed since the snapshot taken at
+    `last_snap_frame` (the JAX package's rule):
+
+      - stamp >= last_snap_frame + 1 - window: integrated or created since,
+        or moved by regularization on a frame after that snapshot (a row
+        with stamp s is regularized on every frame f <= s + window);
+      - radius < 0: merge tombstones (their stamp is 0).
+
+    Returns (indices int32, positions (m, 3), radii_sq (m,), normals
+    (m, 3), stamps int32 (m,), m, surfel_count) on the state's device, all
+    m dirty rows in ascending index order.  Sizing the result by m reads
+    the count on the host (a synchronisation); the JAX package's
+    fixed-size `max_rows` bucket has no counterpart."""
+    pack = state.pack
+    n = pack.shape[0]
+    live = torch.arange(n, dtype=torch.int32, device=pack.device) < \
+        state.surfel_count
+    dirty = live & ((update_stamps(state) >= last_snap_frame + 1 - window) |
+                    (pack[:, RAD] < 0))
+    rows = torch.nonzero(dirty).squeeze(1)
+    # Rows move as int32 bits, never through float arithmetic.
+    bits = pack.view(torch.int32)[rows]
+    payload = bits.view(torch.float32)
+    return (rows.to(torch.int32), payload[:, SX:SZ + 1], payload[:, RAD],
+            payload[:, NX:NZ + 1], bits[:, STAMP], rows.shape[0],
+            state.surfel_count)

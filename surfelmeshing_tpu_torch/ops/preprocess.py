@@ -22,6 +22,7 @@ Numerical parity notes (same as the JAX package):
 from __future__ import annotations
 
 import math
+import struct
 from typing import Optional, Tuple
 
 import torch
@@ -50,10 +51,56 @@ def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.to(torch.float64)).to(torch.float32)
 
 
+def _f32(value: float) -> float:
+    """The f32 value nearest to `value`, as a Python float."""
+    return struct.unpack("f", struct.pack("f", value))[0]
+
+
+# XLA's f32 exp (its CPU backend's Cephes polynomial): range limits,
+# log2(e), ln(2) in two parts, and the polynomial coefficients, all f32.
+_EXP_LO, _EXP_HI = _f32(-87.8), _f32(88.8)
+_LOG2E = _f32(1.44269504088896341)
+_LN2_HI, _LN2_LO = _f32(0.693359375), _f32(-2.12194440e-4)
+_EXP_POLY = tuple(_f32(c) for c in (
+    1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3, 4.1665795894e-2,
+    1.6666665459e-1, 5.0000001201e-1))
+_F32_MIN_NORMAL = 2.0 ** -126
+
+
+def _fma_f32(a: torch.Tensor, b, c) -> torch.Tensor:
+    """f32 a * b + c rounded once, as a fused multiply-add: the f64 product
+    of two f32 values is exact, and the f64 sum is rounded to f32.  (The
+    sum is rounded twice, to f64 and then to f32; that differs from one
+    rounding only when the f64 sum lands exactly halfway between two f32
+    values.)"""
+    c = c.to(torch.float64) if isinstance(c, torch.Tensor) else c
+    return (a.to(torch.float64) * b + c).to(torch.float32)
+
+
 def exp_f32(x: torch.Tensor) -> torch.Tensor:
-    """f32 exp through f64, so the CPU and the card round alike (their f32
-    exp implementations differ in the last bit)."""
-    return torch.exp(x.to(torch.float64)).to(torch.float32)
+    """f32 exp with XLA's rounding, in IEEE operations that give the same
+    bits on the CPU and the card.
+
+    XLA's f32 exp is not correctly rounded (it differs from the exact
+    result in the last bit for about 1 input in 10): x = n ln2 + r with
+    n = floor(x log2(e) + 0.5), a degree-6 polynomial for e^r evaluated
+    with fused multiply-adds, times 2^n built from its exponent bits; inputs
+    are clamped to [-87.8, 88.8] and n to [-127, 127], and results below
+    2^-126 flush to 0.  The bilateral filter's u16 truncation turns its last
+    bit into a whole depth unit now and then, so the port reproduces it
+    (tests/test_torch_preprocess.py holds it to XLA bit for bit)."""
+    x = x.to(torch.float32).clamp(_EXP_LO, _EXP_HI)
+    n = torch.floor(_fma_f32(x, _LOG2E, 0.5)).clamp(-127.0, 127.0)
+    r = _fma_f32(n, -_LN2_HI, x)
+    r = _fma_f32(n, -_LN2_LO, r)
+    y = _fma_f32(r, _EXP_POLY[0], _EXP_POLY[1])
+    for coeff in _EXP_POLY[2:]:
+        y = _fma_f32(y, r, coeff)
+    y = 1.0 + _fma_f32(y, r * r, r)
+    pow2 = ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+    out = y * pow2
+    # XLA runs with denormals flushed: results below 2^-126 are 0.
+    return torch.where(out < _F32_MIN_NORMAL, 0.0, out)
 
 
 def _pixel_grid(height: int, width: int, device) -> Tuple[torch.Tensor,
@@ -83,12 +130,16 @@ def bilateral_filter_and_cutoff(
 
     Pixels outside the centered valid-region circle, zero pixels and pixels
     beyond max_depth_u16 become 0; all others get a depth-adaptive
-    bilateral-filtered value.  Taps accumulate in the JAX package's order.
+    bilateral-filtered value.  The weights of all taps are computed in one
+    pass over a (taps, H, W) stack; the taps then accumulate one by one in
+    the JAX package's order, so the sums round as its sums do.
     """
     height, width = depth.shape
     radius = int(radius_factor * sigma_xy + 0.5)
-    radius_sq = radius * radius
     denom_xy = 2.0 * sigma_xy * sigma_xy
+    taps = [(dy, dx) for dy in range(-radius, radius + 1)
+            for dx in range(-radius, radius + 1)
+            if dx * dx + dy * dy <= radius * radius]
 
     depth = depth.to(torch.int32)
     center = depth.to(torch.float32)
@@ -103,20 +154,20 @@ def bilateral_filter_and_cutoff(
     adapted_denom = 2.0 * adapted_sigma * adapted_sigma
 
     padded = F.pad(center, (radius, radius, radius, radius))
+    samples = torch.stack([_shifted(padded, radius, dy, dx, height, width)
+                           for dy, dx in taps])
+    grid_term = torch.tensor([-(dx * dx + dy * dy) / denom_xy
+                              for dy, dx in taps], dtype=torch.float32,
+                             device=depth.device)[:, None, None]
+    value_dist_sq = (center - samples) ** 2
+    weights = exp_f32(grid_term - value_dist_sq / adapted_denom)
+    weights = torch.where(samples != 0, weights, 0.0)
+    weighted = weights * samples
     sum_acc = torch.zeros_like(center)
     weight_acc = torch.zeros_like(center)
-    for dy in range(-radius, radius + 1):
-        for dx in range(-radius, radius + 1):
-            grid_dist_sq = dx * dx + dy * dy
-            if grid_dist_sq > radius_sq:
-                continue
-            sample = _shifted(padded, radius, dy, dx, height, width)
-            value_dist_sq = (center - sample) ** 2
-            w = exp_f32(-grid_dist_sq / denom_xy -
-                        value_dist_sq / adapted_denom)
-            w = torch.where(sample != 0, w, 0.0)
-            sum_acc = sum_acc + w * sample
-            weight_acc = weight_acc + w
+    for t in range(len(taps)):
+        sum_acc = sum_acc + weighted[t]
+        weight_acc = weight_acc + weights[t]
 
     filtered = torch.where(
         weight_acc == 0, 0.0,
@@ -354,6 +405,60 @@ def compute_point_radii_and_remove_isolated(
     # >= 8 valid neighbors required (cuda_depth_processing.cu:832-835).
     out_depth = torch.where(valid_center & (neighbor_count >= 8), depth, 0)
     return out_depth, radius_sq
+
+
+def _valid_median(samples: torch.Tensor, dim: int):
+    """Median of the non-zero samples along `dim` and their count, as the
+    JAX package computes it: invalid samples sort past the valid ones
+    (as 65536); an odd count takes the middle value, an even count the
+    one of the two middle values closer to the valid samples' average
+    (the upper one on a tie).  -> (median int32, count int32)."""
+    samples = samples.to(torch.int32)
+    k = samples.shape[dim]
+    valid = samples > 0
+    count = valid.sum(dim, dtype=torch.int32)
+    ordered = torch.sort(torch.where(valid, samples, 65536), dim=dim).values
+
+    def at(pos):
+        return ordered.gather(dim, pos.clamp(0, k - 1).long().unsqueeze(dim)) \
+            .squeeze(dim)
+
+    mid_hi = at(count // 2)
+    mid_lo = at(count // 2 - 1)
+    avg = torch.where(valid, samples, 0).sum(dim, dtype=torch.int32) \
+        .to(torch.float32) / count.clamp_min(1).to(torch.float32)
+    lo_closer = (mid_lo.to(torch.float32) - avg).abs() < \
+        (mid_hi.to(torch.float32) - avg).abs()
+    median = torch.where((count % 2 == 0) & lo_closer, mid_lo, mid_hi)
+    return median, count
+
+
+def median_filter_and_densify(depth: torch.Tensor) -> torch.Tensor:
+    """MedianFilterAndDensifyDepthMap (main.cc:207-252): the median of the
+    valid samples of each 3x3 window (center included) where at least 2
+    are valid, else the input value.  Exact u16 values (as int32)."""
+    height, width = depth.shape
+    depth = depth.to(torch.int32)
+    padded = F.pad(depth, (1, 1, 1, 1))
+    stack = torch.stack([_shifted(padded, 1, dy, dx, height, width)
+                         for dy in (-1, 0, 1) for dx in (-1, 0, 1)])
+    median, count = _valid_median(stack, 0)
+    return torch.where(count >= 2, median, depth)
+
+
+def downscale_median_excluding(depth: torch.Tensor,
+                               factor: int) -> torch.Tensor:
+    """DownscaleUsingMedianWhileExcluding (image.h:1003-1053) for
+    power-of-2 factors: each output pixel is the median of the non-zero
+    values of its factor x factor block (0 when there are none); used for
+    --pyramid_level (main.cc:951-963).  Exact u16 values (as int32)."""
+    h, w = depth.shape
+    ho, wo = h // factor, w // factor
+    blocks = depth[:ho * factor, :wo * factor] \
+        .reshape(ho, factor, wo, factor).permute(0, 2, 1, 3) \
+        .reshape(ho, wo, factor * factor)
+    median, count = _valid_median(blocks, -1)
+    return torch.where(count > 0, median, 0)
 
 
 def preprocess_frame(

@@ -14,7 +14,8 @@ ALLOWED_REFERENCE_MODULES = {
     "surfelmeshing_tpu.io.tum", "surfelmeshing_tpu.io.synthetic",
     "surfelmeshing_tpu.io.mesh_io", "surfelmeshing_tpu.utils.se3",
     "surfelmeshing_tpu.utils.camera", "surfelmeshing_tpu.utils.spline",
-    "surfelmeshing_tpu.utils.timing"}
+    "surfelmeshing_tpu.utils.timing", "surfelmeshing_tpu.meshing.engine",
+    "surfelmeshing_tpu.meshing.driver"}
 
 
 def imported_modules(path: Path):
@@ -49,7 +50,9 @@ SOURCES = sorted(PORT.rglob("*.py"))
 def test_port_has_modules():
     names = {p.relative_to(PORT).as_posix() for p in SOURCES}
     assert {"__init__.py", "pipeline.py", "ops/preprocess.py",
-            "ops/fusion.py", "ops/blend.py"} <= names
+            "ops/fusion.py", "ops/blend.py", "ops/gather.py",
+            "ops/cuda_build.py", "meshing.py", "io/checkpoint.py",
+            "app/main.py", "tools/gather_probe.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES,

@@ -53,7 +53,11 @@ def runs():
 
 
 def test_pipeline_matches_jax(runs, record_property):
-    jax_pipe, port = runs
+    record_property("pipeline_parity", assert_pipelines_match(*runs))
+
+
+def assert_pipelines_match(jax_pipe, port) -> str:
+    """The module docstring's criterion; returns which form of it held."""
     js = jax_pipe.state
     count = port.surfel_count()
     assert count == int(js.surfel_count) > 1000
@@ -77,7 +81,7 @@ def test_pipeline_matches_jax(runs, record_property):
             want_pack[:count][live][:, TF.SX:TF.SZ + 1])
         assert dist < 5e-4
         held = f"fallback (mean nearest distance {dist:.2e} m)"
-    record_property("pipeline_parity", held)
+    return held
 
 
 def test_snapshot_and_export(runs):
@@ -98,8 +102,9 @@ def test_snapshot_and_export(runs):
 
 def test_unported_options_raise():
     video, _ = synthetic_rgbd_video(1, W, H)
-    for kw in (dict(pyramid_level=1), dict(active_surfel_budget=4096),
-               dict(median_filter_and_densify_iterations=1)):
+    for kw in (dict(active_surfel_budget=4096),
+               dict(log_timings_staged=True),
+               dict(debug_depth_preprocessing=True)):
         cfg = SurfelMeshingConfig(max_surfel_count=1024, **kw)
         with pytest.raises(NotImplementedError):
             ReconstructionPipeline(cfg, video.depth_camera, "cpu")
