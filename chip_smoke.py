@@ -26,13 +26,23 @@ Phases, each printing one or more lines:
      frame submits a snapshot when the mesher is idle; afterwards one delta
      snapshot is split into its device part and its copies to the host
      (slice and e2e also print their peak device memory);
-  9. app: the port's application on tests/fixtures/tum_micro at 640x480
-     with async meshing, exporting mesh, point cloud and checkpoint.
+  9. e2e-20m: the same loop at the default 20M capacity with the auto
+     active-set budget (tools/bench_e2e.py's `20m:-1`): no tile may be
+     skipped, every fused frame launches the blending kernel once, and the
+     final state equals e2e's bit for bit; then, for the record, 4 frames
+     of the full-shape 20M path (budget 0) timed with CUDA events;
+ 10. app: the port's application on tests/fixtures/tum_micro at 640x480
+     with async meshing, exporting mesh, point cloud and checkpoint;
+ 11. app-20m: the same at the default capacity with --active_surfel_budget
+     -1: the log reports 0 skipped tiles and the point cloud is app's,
+     byte for byte.
 Then one JSON line describing the kernels and, last, the result line.
 Any failed check ends the run with a non-zero exit code.
 """
 
+import dataclasses
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -347,21 +357,30 @@ def snapshot_split(pipe, last_frame: int, window: int) -> str:
             f"{1000.0 * (t2 - t1):.3f} ms")
 
 
-def phase_e2e(device):
-    """tools/bench_e2e.py::run_config at 500k on the port (no XLA compile
-    counter or rollback: nothing compiles inside the loop)."""
-    chunk, warmup = 4, 8
-    cfg = SurfelMeshingConfig(max_surfel_count=500_000,
-                              max_creations_per_frame=2 ** 15,
-                              restrict_fps_to=0)
-    video, _ = synthetic_rgbd_video(40, 640, 480, noise_sigma=0.002)
+E2E_FRAMES = 40
+E2E_CHUNK, E2E_WARMUP = 4, 8
+
+
+def e2e_config(capacity: int, budget: int) -> SurfelMeshingConfig:
+    return SurfelMeshingConfig(max_surfel_count=capacity,
+                               max_creations_per_frame=2 ** 15,
+                               active_surfel_budget=budget,
+                               restrict_fps_to=0)
+
+
+def run_e2e(device, cfg, label: str) -> dict:
+    """tools/bench_e2e.py::run_config on the port (no XLA compile counter
+    or rollback: nothing compiles inside the loop); blending-kernel
+    launches are counted over all its frames."""
+    chunk, warmup = E2E_CHUNK, E2E_WARMUP
+    video, _ = synthetic_rgbd_video(E2E_FRAMES, 640, 480, noise_sigma=0.002)
     torch.cuda.reset_peak_memory_stats()
     pipe = ReconstructionPipeline(cfg, video.depth_camera, device)
     mesher = MeshingDriver(cfg)
     half = cfg.outlier_filtering_frame_count // 2
     lo, hi = half, video.frame_count - half
     timed = range(lo + warmup, hi)
-    tags, frames = [], []
+    tags, frames, budgets = [], [], []
 
     def submit(i):
         tagged = pipe.snapshot_for_meshing(i)
@@ -369,8 +388,16 @@ def phase_e2e(device):
         frames.append(i)
         mesher.submit_snapshot(tagged, i)
 
+    def fuse(i):
+        if pipe.process_frame(video, i) is None:
+            return 0
+        budgets.append(pipe.active_budget())
+        return 1
+
+    blend.blend_core.launches = 0
+    fused = 0
     for i in range(lo, lo + warmup):
-        pipe.process_frame(video, i)
+        fused += fuse(i)
         if (i - lo) % chunk == chunk - 1:
             submit(i)
             mesher.drain()
@@ -382,12 +409,13 @@ def phase_e2e(device):
     t0 = time.perf_counter()
     start.record()
     for i in timed:
-        pipe.process_frame(video, i)
+        fused += fuse(i)
         if mesher.idle():
             submit(i)
     end.record()
     pipe.block_until_ready()
     wall = time.perf_counter() - t0
+    launches = blend.blend_core.launches
     mesher.drain()
     tris = int(mesher.engine.triangle_count)
     mesher.finish()
@@ -403,24 +431,105 @@ def phase_e2e(device):
         f"{tag} {1000.0 * st.mean:.3f}" for tag, st in (
             (tag, pipe.timing.stats(tag)) for tag in
             ("preprocessing", "integration", "surfel_transfer")))
-    print(f"[e2e] 640x480, 500k capacity, async meshing: {len(timed)} timed "
-          f"frames after {warmup} warm-up; {ms_wall:.3f} ms/frame host wall "
-          f"({1000.0 / ms_wall:.2f} FPS), {ms_events:.3f} ms/frame CUDA "
-          f"events; {snaps} snapshots in the timed frames ({tags.count('delta')}"
-          f" delta of {len(tags)} in all), {rows} rows shipped, {tris} "
-          f"triangles, {surfels} surfels, overflow "
-          f"{int(pipe.state.overflow_count)}; mean host ms per call over "
-          f"the run: {stages}; {peak} MiB peak device memory allocated")
-    print(f"[e2e] after the timed frames, {split} (host clock)")
-    check(tris > 0, "e2e: no triangles")
-    check("delta" in tags, "e2e: no delta snapshot")
+    summary = (
+        f"{len(timed)} timed frames after {warmup} warm-up; {ms_wall:.3f} "
+        f"ms/frame host wall ({1000.0 / ms_wall:.2f} FPS), {ms_events:.3f} "
+        f"ms/frame CUDA events; {snaps} snapshots in the timed frames "
+        f"({tags.count('delta')} delta of {len(tags)} in all), {rows} rows "
+        f"shipped, {tris} triangles, {surfels} surfels, overflow "
+        f"{int(pipe.state.overflow_count)}; mean host ms per call over the "
+        f"run: {stages}; {peak} MiB peak device memory allocated")
+    check(tris > 0, f"{label}: no triangles")
+    check("delta" in tags, f"{label}: no delta snapshot")
     check(rows < max(snaps, 1) * surfels,
-          "e2e: delta snapshots shipped as many rows as full ones")
-    return ms_wall
+          f"{label}: delta snapshots shipped as many rows as full ones")
+    state = F.state_to_numpy(dataclasses.replace(
+        pipe.state, pack=pipe.state.pack[:surfels],
+        neighbors=pipe.state.neighbors[:, :surfels],
+        nbr_dist=pipe.state.nbr_dist[:, :surfels]))
+    return dict(summary=summary, split=split, launches=launches, fused=fused,
+                budgets=budgets, state=state)
 
 
-def phase_app(device):
-    """The port's application over the real-format fixture at 640x480."""
+def phase_e2e(device) -> dict:
+    """e2e at 500k, full shape."""
+    run = run_e2e(device, e2e_config(500_000, 0), "e2e")
+    print(f"[e2e] 640x480, 500k capacity, async meshing: {run['summary']}")
+    print(f"[e2e] after the timed frames, {run['split']} (host clock)")
+    return run
+
+
+def phase_e2e_20m(device, e2e) -> None:
+    """e2e at the default 20M capacity with the auto active-set budget,
+    held to e2e's final state; then 4 full-shape 20M frames, timed."""
+    capacity = SurfelMeshingConfig().max_surfel_count
+    run = run_e2e(device, e2e_config(capacity, -1), "e2e-20m")
+    state = run["state"]
+    skipped = int(state["skipped_tile_count"])
+    budgets = sorted(set(run["budgets"]))
+    print(f"[e2e-20m] 640x480, {capacity} capacity, auto active-set budget "
+          f"(-1), async meshing: {run['summary']}")
+    print(f"[e2e-20m] budgets used {budgets}; final active tiles "
+          f"{int(state['active_tile_count'])}, skipped tiles {skipped}; "
+          f"{run['launches']} blend launches for {run['fused']} fused "
+          f"frames; {run['split']} (host clock)")
+    check(skipped == 0, f"e2e-20m: {skipped} tiles skipped")
+    check(run["launches"] == run["fused"], f"e2e-20m: {run['launches']} "
+          f"blend launches for {run['fused']} fused frames")
+    want = e2e["state"]
+    for name in ("surfel_count", "merge_count", "overflow_count"):
+        check(int(state[name]) == int(want[name]),
+              f"e2e-20m: {name} {state[name]} != e2e's {want[name]}")
+    for name in ("pack", "neighbors", "nbr_dist"):
+        check(np.array_equal(state[name].view(np.int32),
+                             want[name].view(np.int32)),
+              f"e2e-20m: final {name} differs from e2e's")
+    print(f"[e2e-20m] final pack, neighbors, nbr_dist and counters "
+          f"bit-identical to e2e's 500k run ({int(want['surfel_count'])} "
+          f"surfels)")
+
+    # For the record: the full-shape path (budget 0) at 20M capacity.
+    cfg = e2e_config(capacity, 0)
+    video, _ = synthetic_rgbd_video(E2E_FRAMES, 640, 480, noise_sigma=0.002)
+    torch.cuda.reset_peak_memory_stats()
+    pipe = ReconstructionPipeline(cfg, video.depth_camera, device)
+    lo = cfg.outlier_filtering_frame_count // 2
+    pipe.process_frame(video, lo)                 # warm-up
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    pipe.block_until_ready()
+    t0 = time.perf_counter()
+    start.record()
+    for i in range(lo + 1, lo + 5):
+        pipe.process_frame(video, i)
+    end.record()
+    pipe.block_until_ready()
+    wall = time.perf_counter() - t0
+    print(f"[e2e-20m] full shape (budget 0) at {capacity} capacity, no "
+          f"meshing: {start.elapsed_time(end) / 4:.3f} ms/frame CUDA events "
+          f"over 4 frames after 1 warm-up (host wall "
+          f"{250.0 * wall:.3f} ms/frame), {pipe.surfel_count()} surfels, "
+          f"{peak_mib()} MiB peak device memory allocated")
+
+
+class _LogLines(logging.Handler):
+    """Collects the formatted records of one logger."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def run_app(device, flags, checkpoint: bool) -> dict:
+    """The port's application over the real-format fixture at 640x480 with
+    `flags`, from a temporary directory; -> outputs and log lines."""
+    logger = logging.getLogger("surfelmeshing_tpu_torch")
+    handler, level = _LogLines(), logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp)
         cwd = os.getcwd()
@@ -428,34 +537,60 @@ def phase_app(device):
         t0 = time.perf_counter()
         try:
             rc = app_main.main([
-                "--device", str(device), "--max_surfel_count", "500000",
+                "--device", str(device), *flags,
                 "--pyramid_level", "0", "--outlier_filtering_frame_count",
                 "2", "--depth_erosion_radius", "1", "--restrict_fps_to",
                 "0", "--exit_after_processing",
                 "--export_mesh", str(out / "mesh.obj"),
                 "--export_point_cloud", str(out / "cloud.ply"),
-                "--save_checkpoint", str(out / "ckpt.npz"),
+                *(["--save_checkpoint", str(out / "ckpt.npz")]
+                  if checkpoint else []),
                 str(FIXTURE), "groundtruth.txt"])
         finally:
             os.chdir(cwd)
+            logger.removeHandler(handler)
+            logger.setLevel(level)
         seconds = time.perf_counter() - t0
         check(rc == 0, f"app exited with {rc}")
         obj = (out / "mesh.obj").read_text()
-        faces = obj.count("\nf ")
-        vertices = obj.count("\nv ") + obj.startswith("v ")
         ply = (out / "cloud.ply").read_bytes()
-        points = int(ply.split(b"element vertex ")[1].split(b"\n")[0])
-        state, frame = load_checkpoint(str(out / "ckpt.npz"), "cpu")
+        state = load_checkpoint(str(out / "ckpt.npz"), "cpu") \
+            if checkpoint else None
+    return dict(rc=rc, seconds=seconds, faces=obj.count("\nf "),
+                vertices=obj.count("\nv ") + obj.startswith("v "), ply=ply,
+                points=int(ply.split(b"element vertex ")[1].split(b"\n")[0]),
+                state=state, log=handler.lines)
+
+
+def phase_app(device) -> bytes:
+    """The app at 500k capacity; -> its point cloud's bytes."""
+    app = run_app(device, ["--max_surfel_count", "500000"], checkpoint=True)
+    state, frame = app["state"]
     count = int(state.surfel_count)
     live = int((state.pack[:count, F.RAD] >= 0).sum())
-    print(f"[app] tum_micro at 640x480, async meshing: rc {rc} in "
-          f"{seconds:.2f} s; OBJ {faces} faces, {vertices} vertices; PLY "
-          f"{points} points; checkpoint frame {frame}, {count} surfels "
-          f"({live} live)")
-    check(faces > 50, "app: OBJ has 50 faces or fewer")
-    check(points > 0, "app: empty PLY")
-    check(live == points == vertices,
+    print(f"[app] tum_micro at 640x480, async meshing: rc {app['rc']} in "
+          f"{app['seconds']:.2f} s; OBJ {app['faces']} faces, "
+          f"{app['vertices']} vertices; PLY {app['points']} points; "
+          f"checkpoint frame {frame}, {count} surfels ({live} live)")
+    check(app["faces"] > 50, "app: OBJ has 50 faces or fewer")
+    check(app["points"] > 0, "app: empty PLY")
+    check(live == app["points"] == app["vertices"],
           "app: checkpoint, PLY and OBJ disagree on the live surfel count")
+    return app["ply"]
+
+
+def phase_app_20m(device, ply: bytes) -> None:
+    """The app at the default capacity with the auto active-set budget."""
+    app = run_app(device, ["--active_surfel_budget", "-1"], checkpoint=False)
+    tiling = [line for line in app["log"] if "active-set tiling" in line]
+    print(f"[app-20m] tum_micro at 640x480, default capacity, "
+          f"--active_surfel_budget -1, async meshing: rc {app['rc']} in "
+          f"{app['seconds']:.2f} s; OBJ {app['faces']} faces (not compared: "
+          f"meshing timing), PLY {app['points']} points, byte-identical to "
+          f"app's: {app['ply'] == ply}; log: {tiling}")
+    check(tiling == ["active-set tiling: 0 tiles skipped over the run"],
+          "app-20m: the log does not report 0 skipped tiles")
+    check(app["ply"] == ply, "app-20m: PLY differs from app's")
 
 
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms):
@@ -474,8 +609,10 @@ def main() -> int:
     err = max(err, phase_slice_inputs(taps, radius))
     phase_gpu_vs_cpu(device)
     gathers = phase_gather(device)
-    phase_e2e(device)
-    phase_app(device)
+    e2e = phase_e2e(device)
+    phase_e2e_20m(device, e2e)
+    ply = phase_app(device)
+    phase_app_20m(device, ply)
     replaces = {"gather_rows": "tools/gather_probe.py:55",
                 "gather_rows3": "tools/gather_probe.py:80",
                 "gather_lane": "tools/gather_probe.py:103"}

@@ -275,9 +275,18 @@ def run(cfg: SurfelMeshingConfig, device) -> int:
             pipe.log_frame_timings(frame_index)
         if frame_index % STATS_INTERVAL == 0:
             pipe.block_until_ready()
-            logger.info("frame %d: %d surfels, %d triangles", frame_index,
-                        pipe.surfel_count(),
-                        mesher.engine.triangle_count if mesher else 0)
+            tri = mesher.engine.triangle_count if mesher else 0
+            if cfg.active_surfel_budget:
+                # Tiles skipped because the working set was full: their
+                # surfels went stale for the frame.
+                logger.info(
+                    "frame %d: %d surfels, %d triangles, %d skipped tiles "
+                    "(budget %d)", frame_index, pipe.surfel_count(), tri,
+                    int(pipe.state.skipped_tile_count),
+                    pipe.active_budget())
+            else:
+                logger.info("frame %d: %d surfels, %d triangles",
+                            frame_index, pipe.surfel_count(), tri)
             if cfg.abort_on_surfel_overflow and \
                     int(pipe.state.overflow_count) > 0:
                 # Reference parity: abort on exceeding max_surfel_count
@@ -313,6 +322,12 @@ def run(cfg: SurfelMeshingConfig, device) -> int:
             return 1
     logger.info("done: %d surfels, fps target hit %d / missed %d",
                 pipe.surfel_count(), frame_count_hits, frame_count_misses)
+    if cfg.active_surfel_budget:
+        skipped = int(pipe.state.skipped_tile_count)
+        log = logger.warning if skipped else logger.info
+        log("active-set tiling: %d tiles skipped over the run%s", skipped,
+            " — stale surfels / duplicate creations possible; raise "
+            "--active_surfel_budget" if skipped else "")
     logger.info("%s", pipe.timing.report())
 
     # Post-processing terminal controls (main.cc:1550: show_result &&

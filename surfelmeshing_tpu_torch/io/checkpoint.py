@@ -1,11 +1,10 @@
 """Reconstruction checkpoint / resume, in the JAX package's npz format.
 
 Version 4 of surfelmeshing_tpu/io/checkpoint.py: one compressed npz with
-`version`, `frame_index` and one array per state field.  Checkpoints
-interchange both ways: the JAX package fills the tiled-path counters the
-port does not have (skipped_tile_count, active_tile_count) with 0, and the
-port ignores them when it reads a JAX checkpoint.  The meshing engine is
-rebuilt from the fused surfels on resume.
+`version`, `frame_index` and one array per state field, the tiled path's
+skipped_tile_count and active_tile_count included.  Checkpoints
+interchange both ways; a missing scalar counter loads as 0, as in the JAX
+package.  The meshing engine is rebuilt from the fused surfels on resume.
 """
 
 from __future__ import annotations
@@ -17,7 +16,8 @@ import numpy as np
 from ..ops.fusion import SurfelState, state_from_numpy, state_to_numpy
 
 FORMAT_VERSION = 4    # v4 adds the nbr_dist stored-slot-distance array
-_COUNTERS = ("surfel_count", "merge_count", "overflow_count")
+_COUNTERS = ("surfel_count", "merge_count", "overflow_count",
+             "skipped_tile_count", "active_tile_count")
 
 
 def save_checkpoint(path: str, state: SurfelState, frame_index: int) -> None:

@@ -11,7 +11,9 @@ are built with order-independent scatter reductions (amin, integer add), so
 they are deterministic; the supporter and conflictor races of the
 reference are resolved by the min-index rule.  The per-surfel phases run
 over the whole capacity, masked by `surfel_count`, which stays on the
-device: a frame needs no host synchronisation.
+device: a frame needs no host synchronisation.  With an active-surfel
+budget they run instead over a working set of whole tiles (the JAX
+package's active-set tiling, `_integrate_tiled`).
 
 State layout is the JAX package's: one packed (N, PACK_WIDTH) f32 matrix
 whose int32 columns (STAMP, CREATION) ride in f32 lanes as bit patterns
@@ -23,7 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -66,6 +68,9 @@ class SurfelState:
     surfel_count: torch.Tensor    # () int32
     merge_count: torch.Tensor     # () int32
     overflow_count: torch.Tensor  # () int32: creations dropped at capacity
+    skipped_tile_count: torch.Tensor  # () int32: tiles past the active budget
+    active_tile_count: torch.Tensor   # () int32: tiles the last tiled frame
+                                      #   wanted (frontier + flagged)
 
 
 def _scalar(value: int, device) -> torch.Tensor:
@@ -85,11 +90,14 @@ def create_surfel_state(capacity: int, device) -> SurfelState:
                             device=device),
         surfel_count=_scalar(0, device),
         merge_count=_scalar(0, device),
-        overflow_count=_scalar(0, device))
+        overflow_count=_scalar(0, device),
+        skipped_tile_count=_scalar(0, device),
+        active_tile_count=_scalar(0, device))
 
 
 def state_from_numpy(pack, neighbors, nbr_dist, surfel_count, merge_count,
-                     overflow_count, device) -> SurfelState:
+                     overflow_count, device, skipped_tile_count=0,
+                     active_tile_count=0) -> SurfelState:
     """A state from host arrays (e.g. the JAX package's state, converted
     with np.asarray); bit patterns of the int32 columns are kept."""
     device = resolve_device(device)
@@ -103,7 +111,9 @@ def state_from_numpy(pack, neighbors, nbr_dist, surfel_count, merge_count,
         nbr_dist=tensor(nbr_dist, np.float32),
         surfel_count=tensor(surfel_count, np.int32).reshape(()),
         merge_count=tensor(merge_count, np.int32).reshape(()),
-        overflow_count=tensor(overflow_count, np.int32).reshape(()))
+        overflow_count=tensor(overflow_count, np.int32).reshape(()),
+        skipped_tile_count=tensor(skipped_tile_count, np.int32).reshape(()),
+        active_tile_count=tensor(active_tile_count, np.int32).reshape(()))
 
 
 def state_to_numpy(state: SurfelState) -> dict:
@@ -168,9 +178,10 @@ def plant_surfel(state: SurfelState, index: int, pos, normal,
 @dataclasses.dataclass(frozen=True)
 class FusionParams:
     """Fusion parameters; the semantic fields of the JAX package's
-    FusionParams with the same defaults.  Its TPU dispatch fields
-    (sorted_pixel_maps, mega_sort, pallas_blending, active_surfel_budget,
-    tile_size, debug_stop_after) have no counterpart here."""
+    FusionParams with the same defaults, including active-set tiling
+    (active_surfel_budget, tile_size).  Its TPU dispatch fields
+    (sorted_pixel_maps, mega_sort, pallas_blending, debug_stop_after) have
+    no counterpart here."""
     width: int
     height: int
     fx: float
@@ -191,6 +202,15 @@ class FusionParams:
     # Creations beyond this per-frame budget are dropped and re-attempted
     # next frame (their pixels stay unsupported).
     max_creations_per_frame: int = 2 ** 15
+    # Active-set tiling: when 0 < active_surfel_budget < capacity, each
+    # frame runs every per-surfel phase on a working set of whole tiles of
+    # `tile_size` rows: the creation frontier, then the tiles holding a
+    # live surfel that projects into the image or was updated within the
+    # regularization window, up to budget // tile_size tiles.  Tiles past
+    # the budget are skipped for the frame (skipped_tile_count).  Requires
+    # capacity % tile_size == 0.  0 processes every row every frame.
+    active_surfel_budget: int = 0
+    tile_size: int = 4096
     # Reference-parity modes of the JAX package; only their defaults (the
     # TPU-native semantics the golden oracle states) are ported so far.
     symmetric_regularization: bool = True
@@ -338,8 +358,148 @@ def integrate_frame(
 
     Returns a new state; the input state is not modified.  When `taps` is a
     dict, the phase-boundary maps are stored in it under the JAX package's
-    tap names (plus "depth", the input depth map).
+    tap names (plus "depth", the input depth map); on the tiled path the
+    per-surfel taps are the working set's.
     """
+    args = (state, depth, normals_xy, radius_img, color, global_T_local,
+            local_T_global, frame_index, params, taps)
+    if 0 < params.active_surfel_budget < state.pack.shape[0]:
+        return _integrate_tiled(*args)
+    return _integrate_body(*args)
+
+
+class _Tiling(NamedTuple):
+    """Working-set context of the tiled path (the JAX package's _Tiling).
+
+    gidx is the global surfel index of each working row (INVALID_INDEX on
+    unused slots); full_pack is the frame's input pack, the merge-phase
+    gather source; sync(pack_w) writes the working tiles into the frame's
+    full-pack copy and returns it, for every gather by global index."""
+    gidx: torch.Tensor
+    full_pack: torch.Tensor
+    sync: Callable[[torch.Tensor], torch.Tensor]
+
+
+def _integrate_tiled(state, depth, normals_xy, radius_img, color,
+                     global_T_local, local_T_global, frame_index, params,
+                     taps) -> SurfelState:
+    """Active-set fusion (the JAX package's _integrate_tiled): gather the
+    tiles holding this frame's relevant surfels (creation frontier first,
+    then in-image or recently updated ones, up to the budget), run the
+    8-phase update on that working set, write the tiles back.
+
+    Tiles past the budget are skipped for the frame: their surfels go
+    stale and their pixels may spawn duplicates, later merged; the count
+    accumulates in skipped_tile_count.  The working set also holds unused
+    slots when fewer tiles are wanted than the budget; they are filled
+    with distinct tiles outside the set and written back unchanged, so
+    every write-back index is unique.
+    """
+    pack = state.pack
+    n = pack.shape[0]
+    ts = params.tile_size
+    if n % ts != 0:
+        raise ValueError(
+            f"active_surfel_budget requires capacity ({n}) to be a "
+            f"multiple of tile_size ({ts})")
+    k_cap = max(params.active_surfel_budget // ts, 1)
+    t_n = n // ts
+    # The creation frontier spans at most c_budget // ts + 1 tiles; it must
+    # always fit, or creations would be lost while surfel_count grows.
+    c_budget = min(params.max_creations_per_frame,
+                   params.height * params.width)
+    if k_cap < c_budget // ts + 1:
+        raise ValueError(
+            f"active_surfel_budget ({params.active_surfel_budget}) too "
+            f"small for the creation frontier: needs at least "
+            f"{(c_budget // ts + 1) * ts} (max_creations_per_frame + one "
+            f"tile)")
+    dev = pack.device
+    count = state.surfel_count
+
+    # Tile flags: one elementwise pass over the capacity.
+    live = torch.arange(n, dtype=torch.int32, device=dev) < count
+    lx, ly, z = _transform(local_T_global, pack[:, PX], pack[:, PY],
+                           pack[:, PZ])
+    in_image = _project(params, lx, ly, z)[4]
+    recent = pack.view(torch.int32)[:, STAMP] >= \
+        frame_index - params.regularization_frame_window_size
+    tflags = (live & (in_image | recent)).view(t_n, ts).any(dim=1)
+
+    # Frontier tiles [surfel_count, surfel_count + c_budget) come first,
+    # then the flagged rest, capped at k_cap working slots.
+    tile_start = torch.arange(t_n, dtype=torch.int32, device=dev) * ts
+    frontier = (tile_start < count + c_budget) & (tile_start + ts > count)
+    f = frontier.to(torch.int32)
+    o = (tflags & ~frontier).to(torch.int32)
+    fpos = torch.cumsum(f, 0, dtype=torch.int32) - f
+    opos = torch.cumsum(o, 0, dtype=torch.int32) - o + fpos[-1] + f[-1]
+    pos = torch.where(frontier, fpos,
+                      torch.where(o > 0, opos, INVALID_INDEX))
+    selected = pos < k_cap
+    total_tiles = opos[-1] + o[-1]
+    skipped = (total_tiles - k_cap).clamp_min(0)
+
+    # Slot k holds tile src_tiles[k]: the selected tiles in slots
+    # [0, num_live), the first unselected tiles after them (t_n > k_cap).
+    num_live = selected.sum(dtype=torch.int32)
+    spare = (~selected).to(torch.int32)
+    spare_slot = num_live + torch.cumsum(spare, 0, dtype=torch.int32) - spare
+    slot = torch.where(selected, pos, spare_slot).clamp_max(k_cap)
+    src_tiles = torch.zeros(k_cap + 1, dtype=torch.int64, device=dev) \
+        .scatter_(0, slot.long(), torch.arange(t_n, device=dev))[:k_cap]
+    slot_live = torch.arange(k_cap, device=dev) < num_live
+    gidx = torch.where(
+        slot_live[:, None],
+        src_tiles.to(torch.int32)[:, None] * ts +
+        torch.arange(ts, dtype=torch.int32, device=dev), INVALID_INDEX) \
+        .reshape(-1)
+
+    # Whole-tile gathers of the working set.
+    pack_w = pack.reshape(t_n, ts, PACK_WIDTH)[src_tiles] \
+        .reshape(k_cap * ts, PACK_WIDTH)
+    nbr_w = state.neighbors.reshape(4, t_n, ts)[:, src_tiles] \
+        .reshape(4, k_cap * ts)
+    dist_w = state.nbr_dist.reshape(4, t_n, ts)[:, src_tiles] \
+        .reshape(4, k_cap * ts)
+
+    # The frame's one full-pack copy; every sync writes the live working
+    # tiles into it in place (unused slots get their gathered rows back).
+    full = pack.clone(memory_format=torch.contiguous_format)
+
+    def sync(pack_now):
+        full.view(t_n, ts, PACK_WIDTH).index_copy_(0, src_tiles, torch.where(
+            slot_live[:, None, None],
+            pack_now.reshape(k_cap, ts, PACK_WIDTH),
+            pack_w.view(k_cap, ts, PACK_WIDTH)))
+        return full
+
+    wstate = dataclasses.replace(
+        state, pack=pack_w, neighbors=nbr_w, nbr_dist=dist_w,
+        skipped_tile_count=state.skipped_tile_count + skipped,
+        active_tile_count=total_tiles)
+    out = _integrate_body(wstate, depth, normals_xy, radius_img, color,
+                          global_T_local, local_T_global, frame_index,
+                          params, taps, _Tiling(gidx, pack, sync))
+
+    def write_back(full_arr, work, before):
+        arr = full_arr.clone(memory_format=torch.contiguous_format)
+        arr.view(4, t_n, ts).index_copy_(1, src_tiles, torch.where(
+            slot_live[None, :, None], work.reshape(4, k_cap, ts),
+            before.view(4, k_cap, ts)))
+        return arr
+
+    return dataclasses.replace(
+        out, pack=sync(out.pack),
+        neighbors=write_back(state.neighbors, out.neighbors, nbr_w),
+        nbr_dist=write_back(state.nbr_dist, out.nbr_dist, dist_w))
+
+
+def _integrate_body(state, depth, normals_xy, radius_img, color,
+                    global_T_local, local_T_global, frame_index, params,
+                    taps, tiling: Optional[_Tiling] = None) -> SurfelState:
+    """The 8 phases over the state's rows: the whole capacity, or the
+    working set of the tiled path (`tiling`)."""
     def tap(name, value):
         if taps is not None:
             taps[name] = value
@@ -356,8 +516,16 @@ def integrate_frame(
 
     pack0 = state.pack
     pack0_i = pack0.view(torch.int32)
-    idx = torch.arange(n, dtype=torch.int32, device=dev)
-    in_count = idx < state.surfel_count
+    if tiling is None:
+        idx = torch.arange(n, dtype=torch.int32, device=dev)
+        merge_src = pack0
+
+        def sync(pack_w):
+            """Full-shape mode: the working pack is the full pack."""
+            return pack_w
+    else:
+        idx, merge_src, sync = tiling
+    in_count = idx < state.surfel_count       # INVALID_INDEX exceeds it
     stamps = pack0_i[:, STAMP]
     active = in_count & (stamps > frame_index - params.active_window)
 
@@ -489,7 +657,8 @@ def integrate_frame(
 
     # --- Phase 3 (part 2): merge tombstoning (kernels.cu:1949-1991) -------
     m_on = m_on & (supported != idx) & (supported != INVALID_INDEX)
-    other = pack0[_safe_idx(supported, n).long()]     # pristine pack rows
+    # Pristine rows of the frame's input pack (the full pack when tiled).
+    other = merge_src[_safe_idx(supported, merge_src.shape[0]).long()]
     other_radius = other[:, RAD]
     radius_ratio = radius_col / torch.where(other_radius != 0, other_radius,
                                             1e-30)
@@ -630,9 +799,10 @@ def integrate_frame(
     tap("neighbors_after_integrate", neighbors)
 
     # --- Phase 6: Neighbor update (kernels.cu:1197-1455) ------------------
+    gpack = sync(pack)   # phase 3+5 updates, seen by global-index gathers
     neighbors, nbr_dist = _update_neighbors(
         params, idx, active, lx, ly, z, px, py, pack, neighbors, nbr_dist,
-        post["a"]["meas"], pa["rad"], sup_a, Tl)
+        post["a"]["meas"], pa["rad"], sup_a, Tl, gpack)
     tap("neighbors_after_update", neighbors)
 
     # --- Phase 7: New surfel creation (kernels.cu:90-271, .cc:37-146) -----
@@ -648,7 +818,7 @@ def integrate_frame(
         _create_new_surfels(params, depth, supporting_surfels, ~has_conflict,
                             img, sup_shift, pack, neighbors, nbr_dist,
                             state.surfel_count, state.overflow_count,
-                            frame_index)
+                            frame_index, idx, gpack)
     tap("pack_after_create", pack)
     tap("neighbors_after_create", neighbors)
     tap("surfel_count_after_create", surfel_count)
@@ -663,11 +833,12 @@ def integrate_frame(
     else:
         for _ in range(params.regularization_iterations):
             pack, neighbors, nbr_dist = _regularize(
-                params, pack, neighbors, nbr_dist, frame_index)
+                params, pack, neighbors, nbr_dist, frame_index, sync)
 
-    return SurfelState(pack=pack, neighbors=neighbors, nbr_dist=nbr_dist,
-                       surfel_count=surfel_count, merge_count=merge_count,
-                       overflow_count=overflow_count)
+    return dataclasses.replace(
+        state, pack=pack, neighbors=neighbors, nbr_dist=nbr_dist,
+        surfel_count=surfel_count, merge_count=merge_count,
+        overflow_count=overflow_count)
 
 
 def _pixel_coords(hw: int, w: int, device):
@@ -701,13 +872,16 @@ def _blend_measurements(params: FusionParams, depth, supporting_surfels,
 
 
 def _update_neighbors(params, idx, active, lx, ly, z, px, py, pack,
-                      neighbors, nbr_dist, meas_a, radius_a, sup_a, Tl):
+                      neighbors, nbr_dist, meas_a, radius_a, sup_a, Tl,
+                      gpack):
     """Refresh the 4 regularization neighbors from the supporting surfels
     of the 4 adjacent pixels (kernels.cu:1197-1455), with the JAX
     package's fast_neighbor_update semantics: existing slots keep their
     stored squared distances, and candidates with a pending detach flag
-    are not inserted.  -> (neighbors, nbr_dist)."""
-    n = pack.shape[0]
+    are not inserted.  Candidate rows are read by global index from
+    `gpack`, the full pack synced after phase 5 (`pack` itself in
+    full-shape mode).  -> (neighbors, nbr_dist)."""
+    n = gpack.shape[0]
     h, w = params.height, params.width
     noise = params.sensor_noise_factor
     reg_factor_sq = float(np.float32(
@@ -735,7 +909,7 @@ def _update_neighbors(params, idx, active, lx, ly, z, px, py, pack,
     for direction in range(4):
         cand = sup_a[direction]
         c_ok = on & (cand != INVALID_INDEX) & (cand != idx)
-        rows = pack[_safe_idx(cand, n).long()]
+        rows = gpack[_safe_idx(cand, n).long()]
         cdx = rows[:, PX] - ox
         cdy = rows[:, PY] - oy
         cdz = rows[:, PZ] - oz
@@ -760,16 +934,19 @@ def _update_neighbors(params, idx, active, lx, ly, z, px, py, pack,
 
 def _create_new_surfels(params, depth, supporting_surfels, conflict_free,
                         img, sup_shift, pack, neighbors, nbr_dist,
-                        surfel_count, overflow_count, frame_index):
+                        surfel_count, overflow_count, frame_index, idx,
+                        gpack):
     """Append a surfel for every unexplained valid depth pixel
     (kernels.cu:90-271).  Flagged pixels are compacted by a cumsum in
     row-major pixel order (the reference's DeviceScan::ExclusiveSum,
     kernels.cc:94-113) into the first min(flagged, budget, free) slots
     after surfel_count; the rest of the frame's work runs over the
-    creation budget, not the image."""
+    creation budget, not the image.  Capacity tests use the full capacity
+    and supporter rows are read by global index from `gpack`; new rows
+    land in the rows of `pack` whose global index `idx` is theirs."""
     h, w = params.height, params.width
     hw = h * w
-    n = pack.shape[0]
+    n = gpack.shape[0]       # full capacity (pack may be a working set)
     dev = pack.device
     reg_factor_sq = float(np.float32(
         params.radius_factor_for_regularization_neighbors ** 2))
@@ -808,7 +985,7 @@ def _create_new_surfels(params, depth, supporting_surfels, conflict_free,
         # Initial neighbors from the 4 adjacent pixels (kernels.cu:189-224).
         sup = sup_shift[k][src_pix]
         has_sup = sup != INVALID_INDEX
-        rows = pack[_safe_idx(sup, n).long()]
+        rows = gpack[_safe_idx(sup, n).long()]
         dx = rows[:, PX] - pgx
         dy = rows[:, PY] - pgy
         dz = rows[:, PZ] - pgz
@@ -863,9 +1040,11 @@ def _create_new_surfels(params, depth, supporting_surfels, conflict_free,
     free = (n - surfel_count).clamp_min(0)
     created = torch.minimum(torch.minimum(total, _scalar(c_budget, dev)),
                             free)
-    # Row r takes new row r - surfel_count when that is < created: one
-    # pass over the capacity instead of a host-synchronised slice.
-    j = torch.arange(n, dtype=torch.int32, device=dev) - surfel_count
+    # Row r takes new row idx[r] - surfel_count when that is < created:
+    # one pass over the rows instead of a host-synchronised slice.  Unused
+    # working rows (idx INVALID_INDEX) never take one; creations land in
+    # frontier tiles, which are always in the working set.
+    j = idx - surfel_count
     take = (j >= 0) & (j < created)
     jc = j.clamp(0, c_budget - 1).long()
     pack = torch.where(take[:, None], rows_c[jc], pack)
@@ -880,7 +1059,8 @@ def _create_new_surfels(params, depth, supporting_surfels, conflict_free,
             overflow_count + capacity_short)
 
 
-def _regularize(params, pack, neighbors, nbr_dist, frame_index):
+def _regularize(params, pack, neighbors, nbr_dist, frame_index,
+                sync_fn=None):
     """One gradient-descent denoising iteration (kernels.cu:2099-2308) with
     the JAX package's symmetric cross terms; -> (pack, neighbors,
     nbr_dist).
@@ -890,8 +1070,13 @@ def _regularize(params, pack, neighbors, nbr_dist, frame_index):
     recent-neighbor count from the previous iteration or frame).  Every
     recent surfel then steps its smoothed position with a data term toward
     the raw position, step length clamped to the surfel radius.
+
+    Neighbor rows are read by global index from `sync_fn(pack)`, the full
+    pack with this working set written in (`pack` itself when sync_fn is
+    None); an out-of-set neighbor contributes its stored RCNT.
     """
-    n = pack.shape[0]
+    gsrc = pack if sync_fn is None else sync_fn(pack)
+    n = gsrc.shape[0]
     w_reg = float(np.float32(params.regularizer_weight))
     window = params.regularization_frame_window_size
     reg_factor_sq = float(np.float32(
@@ -902,7 +1087,7 @@ def _regularize(params, pack, neighbors, nbr_dist, frame_index):
     stamps = pack.view(torch.int32)[:, STAMP]
 
     slot_valid = neighbors != INVALID_INDEX                  # (4, N)
-    rows = [pack[_safe_idx(neighbors[k], n).long()] for k in range(4)]
+    rows = [gsrc[_safe_idx(neighbors[k], n).long()] for k in range(4)]
     dx = torch.stack([r[:, SX] for r in rows]) - sx[None, :]
     dy = torch.stack([r[:, SY] for r in rows]) - sy[None, :]
     dz = torch.stack([r[:, SZ] for r in rows]) - sz[None, :]

@@ -6,8 +6,16 @@ and fusion on the device, ships meshing snapshots (full, then changed rows
 only), tracks per-stage host timings and exports results.  The JAX
 package's dispatch machinery (shape buckets, chunked scans, deferral,
 precompiles, the delta-row bucket) has no counterpart: torch runs each
-frame eagerly, and the math is the same, so config.frame_chunk,
-use_shape_buckets and the adaptive bound are ignored.
+frame eagerly, and the math is the same, so config.frame_chunk and
+use_shape_buckets are ignored.
+
+Active-set tiling (config.active_surfel_budget) is the JAX package's:
+a budget N > 0 is passed to integrate_frame, and -1 sizes each frame's
+budget from the lagged visible-tile demand (_auto_budget).  That demand
+and the surfel count reach the host through non-blocking copies into
+pinned memory, one per frame, consumed once their CUDA event has fired;
+the frame loop waits only while more than max_inflight_dispatches - 1
+are outstanding, the JAX package's throttle.
 
 Stage timings are host times around eager calls that return before the
 device finishes; a snapshot reads the device and so includes the wait for
@@ -64,13 +72,13 @@ def fusion_params_from_config(config: SurfelMeshingConfig,
             config.radius_factor_for_regularization_neighbors),
         surfel_integration_active_window_size=(
             config.surfel_integration_active_window_size),
+        active_surfel_budget=config.active_surfel_budget,
         max_creations_per_frame=config.max_creations_per_frame,
     )
 
 
 # Options of the JAX pipeline that the port refuses rather than ignores.
-UNPORTED_OPTIONS = ("active_surfel_budget", "log_timings_staged",
-                    "debug_depth_preprocessing")
+UNPORTED_OPTIONS = ("log_timings_staged", "debug_depth_preprocessing")
 
 
 class ReconstructionPipeline:
@@ -87,8 +95,12 @@ class ReconstructionPipeline:
         self.camera = camera.pyramid_level(config.pyramid_level)
         self.device = resolve_device(device)
         self.fusion_params = fusion_params_from_config(config, self.camera)
-        self.state: SurfelState = create_surfel_state(
-            config.max_surfel_count, self.device)
+        capacity = config.max_surfel_count
+        if config.active_surfel_budget:
+            # Tiling needs a tile-aligned capacity; round up.
+            ts = self.fusion_params.tile_size
+            capacity = (capacity + ts - 1) // ts * ts
+        self.state: SurfelState = create_surfel_state(capacity, self.device)
         self.timing = Timing()
         self.timings_log_lines = []
         self._last_stage_ms: Dict[str, float] = {}
@@ -100,6 +112,16 @@ class ReconstructionPipeline:
         self._last_snap_frame: Optional[int] = None
         self.snapshot_rows_shipped = 0
         self.snapshot_count = 0
+        # Auto active-set budget: the last confirmed surfel count and tile
+        # demand, the frames dispatched since, the FIFO of in-flight
+        # readbacks (host tensor, CUDA event or None) and recent per-frame
+        # growth samples (for adaptive_creation_bound).
+        self._confirmed_count = 0
+        self._lagged_active_tiles = 0
+        self._unconfirmed_frames = 0
+        self._pending_counts = []
+        self._growth_window = []
+        self._current_budget = config.active_surfel_budget
 
     # -- frame window management -------------------------------------------
 
@@ -150,7 +172,8 @@ class ReconstructionPipeline:
         t_gl, t_lg = self._frame_pose(video, frame_index)
         self.state = integrate_frame(
             self.state, d, nrm, rad, color, self._to_device(t_gl),
-            self._to_device(t_lg), frame_index, self.fusion_params, taps)
+            self._to_device(t_lg), frame_index, self._frame_params(), taps)
+        self._queue_count_readback()
         t2 = time.perf_counter()
         self.timing.add_time("preprocessing", t1 - t0)
         self.timing.add_time("integration", t2 - t1)
@@ -163,6 +186,89 @@ class ReconstructionPipeline:
         return FrameResult(frame_index=frame_index,
                            surfel_count=-1,  # fetched lazily: a host sync
                            merge_count=-1)
+
+    # -- active-set budget (JAX pipeline.py:266-374,731-760) ----------------
+
+    def _frame_params(self) -> FusionParams:
+        """This frame's fusion parameters: with the auto budget (-1), the
+        budget from the readbacks confirmed so far."""
+        params = self.fusion_params
+        if self.config.active_surfel_budget == -1:
+            self._drain_count_readbacks(
+                max(self.config.max_inflight_dispatches - 1, 0))
+            params = dataclasses.replace(
+                params, active_surfel_budget=self._auto_budget())
+        self._current_budget = params.active_surfel_budget
+        return params
+
+    def _queue_count_readback(self) -> None:
+        """Start the copy of (surfel_count, active_tile_count) to the host
+        without waiting for it (auto budget only)."""
+        if self.config.active_surfel_budget != -1:
+            return
+        values = torch.stack([self.state.surfel_count,
+                              self.state.active_tile_count])
+        event = None
+        if values.is_cuda:
+            host = torch.empty(2, dtype=torch.int32, pin_memory=True)
+            host.copy_(values, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            values = host
+        self._pending_counts.append((values, event))
+        self._unconfirmed_frames += 1
+
+    def _drain_count_readbacks(self, max_outstanding: int) -> None:
+        """Consume the readbacks whose copy has completed, in dispatch
+        order, and block on the oldest while more than max_outstanding
+        are unconfirmed."""
+        pend = self._pending_counts
+        while pend and (len(pend) > max_outstanding or pend[0][1] is None
+                        or pend[0][1].query()):
+            values, event = pend.pop(0)
+            if event is not None:
+                event.synchronize()
+            new_count, active_tiles = values.tolist()
+            self._growth_window.append(new_count - self._confirmed_count)
+            del self._growth_window[:-4]
+            self._confirmed_count = new_count
+            self._lagged_active_tiles = active_tiles
+            self._unconfirmed_frames -= 1
+
+    def _count_bound(self) -> int:
+        """Upper bound on the current surfel count: the last confirmed
+        count plus one creation charge per unconfirmed frame, the full
+        creation budget or, with adaptive_creation_bound, factor * the
+        larger of the two latest confirmed growths (at least 2048)."""
+        budget = self.fusion_params.max_creations_per_frame
+        factor = self.config.adaptive_creation_bound
+        if factor > 0 and self._growth_window:
+            budget = min(budget, max(
+                2048, int(factor * max(self._growth_window[-2:]))))
+        return self._confirmed_count + self._unconfirmed_frames * budget
+
+    def _auto_budget(self) -> int:
+        """The auto budget: twice the lagged tile demand (or, before any
+        demand is seen, twice the count bound) on a power-of-2 tile
+        ladder, at least the creation frontier plus one tile, at most the
+        capacity.  A demand jump past the 2x headroom skips tiles
+        (skipped_tile_count) until the budget catches up."""
+        ts = self.fusion_params.tile_size
+        cap = self.state.pack.shape[0]
+        c_budget = min(self.fusion_params.max_creations_per_frame,
+                       self.camera.width * self.camera.height)
+        floor_tiles = c_budget // ts + 2
+        if self._lagged_active_tiles > 0:
+            want_tiles = 2 * self._lagged_active_tiles
+        else:
+            want_tiles = -(-2 * max(self._count_bound(), 1) // ts)
+        tiles = max(floor_tiles, want_tiles)
+        tiles = 1 << (tiles - 1).bit_length()
+        return int(min(tiles * ts, cap))
+
+    def active_budget(self) -> int:
+        """The active-set budget of the last processed frame."""
+        return self._current_budget
 
     def _to_device(self, array: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(array, np.float32)) \

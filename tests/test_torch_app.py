@@ -11,6 +11,7 @@ in the bilateral filter and the fusion step, which moves a few neighbor
 slots; ROADMAP queue 3.)
 """
 
+import logging
 import os
 
 import jax
@@ -74,6 +75,21 @@ def test_app_resumes_from_checkpoint(tmp_path, monkeypatch):
     b, frame_b = load_checkpoint("b.npz", "cpu")
     assert (frame_a, frame_b) == (4, 8)
     assert int(b.surfel_count) > int(a.surfel_count)
+
+
+def test_app_auto_active_budget(tmp_path, monkeypatch, caplog):
+    """--active_surfel_budget -1 logs the skipped-tile count
+    (tests/test_app.py:277-287); with no tile skipped the point cloud is
+    the untiled run's, byte for byte."""
+    monkeypatch.chdir(tmp_path)
+    for name, extra in (("full.ply", []),
+                        ("tiled.ply", ["--active_surfel_budget", "-1"])):
+        with caplog.at_level(logging.INFO, logger="surfelmeshing_tpu_torch"):
+            assert main(["--device", "cpu", *FLAGS, *extra,
+                         "--export_point_cloud", name, *DATASET]) == 0
+    assert "active-set tiling: 0 tiles skipped over the run" in caplog.text
+    assert (tmp_path / "tiled.ply").read_bytes() == \
+        (tmp_path / "full.ply").read_bytes()
 
 
 @pytest.mark.parametrize("flags", [["--create_video"],

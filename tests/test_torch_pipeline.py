@@ -10,6 +10,8 @@ count within 1% and a mean nearest-surfel distance under 0.5 mm instead,
 and records which criterion held in the `pipeline_parity` property.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -100,11 +102,37 @@ def test_snapshot_and_export(runs):
     assert np.isfinite(smooth).all()
 
 
+def test_auto_budget_pipeline_matches_jax(record_property):
+    """--active_surfel_budget -1 on both pipelines: the port's tiled frames
+    against the JAX package's by the module docstring's criterion."""
+    cfg = dataclasses.replace(CONFIG, active_surfel_budget=-1)
+    pipes, budgets = [], []
+    for make in (lambda cam: JaxPipeline(cfg, cam),
+                 lambda cam: ReconstructionPipeline(cfg, cam, "cpu")):
+        video, _ = synthetic_rgbd_video(FRAMES, W, H, noise_sigma=0.002)
+        pipe = make(video.depth_camera)
+        budgets.append([pipe.active_budget() for i in range(FRAMES)
+                        if pipe.process_frame(video, i) is not None])
+        pipes.append(pipe)
+    # The port ran tiled frames (budget 8192 < 16384).  The budgets may
+    # differ from the JAX pipeline's: each follows the readbacks that had
+    # completed when it dispatched.
+    assert min(budgets[1]) == 8192 < CONFIG.max_surfel_count, budgets
+    assert int(pipes[1].state.skipped_tile_count) == \
+        int(pipes[0].state.skipped_tile_count) == 0
+    record_property("pipeline_parity", assert_pipelines_match(*pipes))
+
+
 def test_unported_options_raise():
     video, _ = synthetic_rgbd_video(1, W, H)
-    for kw in (dict(active_surfel_budget=4096),
-               dict(log_timings_staged=True),
+    for kw in (dict(log_timings_staged=True),
                dict(debug_depth_preprocessing=True)):
         cfg = SurfelMeshingConfig(max_surfel_count=1024, **kw)
         with pytest.raises(NotImplementedError):
             ReconstructionPipeline(cfg, video.depth_camera, "cpu")
+    # Active-set tiling is ported: the flag is accepted and the capacity
+    # rounded up to whole tiles, as in the JAX pipeline.
+    cfg = SurfelMeshingConfig(max_surfel_count=1024, active_surfel_budget=4096)
+    pipe = ReconstructionPipeline(cfg, video.depth_camera, "cpu")
+    assert pipe.fusion_params.active_surfel_budget == 4096
+    assert pipe.state.pack.shape[0] == 4096 == pipe.active_budget()

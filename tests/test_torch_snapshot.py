@@ -40,11 +40,8 @@ def bits(a):
 
 
 def to_jax(state):
-    arrays = TF.state_to_numpy(state)
-    return JF.SurfelState(
-        **{k: jnp.asarray(v) for k, v in arrays.items()},
-        skipped_tile_count=jnp.zeros((), jnp.int32),
-        active_tile_count=jnp.zeros((), jnp.int32))
+    return JF.SurfelState(**{k: jnp.asarray(v) for k, v in
+                             TF.state_to_numpy(state).items()})
 
 
 @pytest.fixture(scope="module")
@@ -159,6 +156,29 @@ def test_checkpoints_interchange_both_ways(run, tmp_path):
     for name, value in TF.state_to_numpy(tstate).items():
         np.testing.assert_array_equal(
             bits(value), bits(getattr(pipe.state, name)), name)
+
+
+def test_checkpoint_tile_counters_interchange(run, tmp_path):
+    """The tiled path's skipped_tile_count / active_tile_count survive a
+    checkpoint both ways."""
+    pipe, _ = run
+    state = dataclasses.replace(
+        pipe.state, skipped_tile_count=torch.tensor(3, dtype=torch.int32),
+        active_tile_count=torch.tensor(7, dtype=torch.int32))
+    port_path = str(tmp_path / "port.npz")
+    checkpoint.save_checkpoint(port_path, state, 6)
+    jstate, _ = jax_checkpoint.load_checkpoint(port_path)
+    assert (int(jstate.skipped_tile_count),
+            int(jstate.active_tile_count)) == (3, 7)
+
+    jax_path = str(tmp_path / "jax.npz")
+    jax_checkpoint.save_checkpoint(jax_path, to_jax(state)._replace(
+        skipped_tile_count=jnp.int32(5), active_tile_count=jnp.int32(9)), 5)
+    tstate, _ = checkpoint.load_checkpoint(jax_path, "cpu")
+    assert (int(tstate.skipped_tile_count),
+            int(tstate.active_tile_count)) == (5, 9)
+    assert tstate.skipped_tile_count.dtype == torch.int32
+    np.testing.assert_array_equal(bits(tstate.pack), bits(state.pack))
 
 
 def test_checkpoint_rejects_other_versions(tmp_path):
