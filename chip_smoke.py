@@ -15,27 +15,46 @@ Phases, each printing one or more lines:
   5. kernel on the slice's own blending inputs (captured through the taps);
   6. the same port slice on the GPU and on the CPU (plain versions) at
      160x120 over 6 fused frames, held to the CPU tests' tolerance;
-  7. gather: the gather probe (tools/gather_probe.py of the port) at its
+  7. exact: the slice with each reference-parity fusion mode
+     (symmetric_regularization=False, exact_conflict_arbitration=True,
+     fast_neighbor_update=False) and with all three: surfels, no overflow,
+     one blending launch per fused frame, ms/frame beside the slice's;
+     all three twice, bit for bit; then each mode on the GPU and on the CPU
+     at 160x120 over 6 fused frames, bit for bit;
+  8. staged: the slice with --log_timings_staged at 500k and at the
+     default 20M capacity with the auto active-set budget: the seven
+     per-phase columns (mean of the timed frames) and their sum beside the
+     CUDA-event time of the whole frame; each final state bit-identical to
+     the slice's unstaged one;
+  9. ab: the A/B matrix's hostile subset (occlusion and thin scenes on the
+     look-away trajectory, default vs all-exact modes) at 160x120 over 8
+     frames, each cell within 5%;
+ 10. gather: the gather probe (tools/gather_probe.py of the port) at its
      sizes, every variant timed with CUDA events, launch counts proving the
      three kernels ran; then each kernel bit for bit against its plain
      version on sources with NaN-pattern, -0.0 and denormal rows and
      out-of-range indices, at the probe's sizes and at N = 1 and N = 257;
-  8. e2e: preprocessing + fusion + asynchronous meshing at 640x480 / 500k
+ 11. e2e: preprocessing + fusion + asynchronous meshing at 640x480 / 500k
      over the 40-frame synthetic video (tools/bench_e2e.py's run_config):
      8 warm-up frames with a full and a delta snapshot drained, then every
      frame submits a snapshot when the mesher is idle; afterwards one delta
      snapshot is split into its device part and its copies to the host
      (slice and e2e also print their peak device memory);
-  9. e2e-20m: the same loop at the default 20M capacity with the auto
+ 12. e2e-20m: the same loop at the default 20M capacity with the auto
      active-set budget (tools/bench_e2e.py's `20m:-1`): no tile may be
      skipped, every fused frame launches the blending kernel once, and the
      final state equals e2e's bit for bit; then, for the record, 4 frames
      of the full-shape 20M path (budget 0) timed with CUDA events;
- 10. app: the port's application on tests/fixtures/tum_micro at 640x480
+ 13. app: the port's application on tests/fixtures/tum_micro at 640x480
      with async meshing, exporting mesh, point cloud and checkpoint;
- 11. app-20m: the same at the default capacity with --active_surfel_budget
+ 14. app-20m: the same at the default capacity with --active_surfel_budget
      -1: the log reports 0 skipped tiles and the point cloud is app's,
-     byte for byte.
+     byte for byte;
+ 15. fidelity: the fidelity anchor at 160x120 over 50 frames, the port's
+     mesh within 1 mm (mean) of the golden oracle's.  It starts after the
+     build: the port fuses on the card and the host-side oracle runs in a
+     worker process while phases 3-14 run; the phase ends last.
+Phases 7-9 and 15 print their wall time.
 Then one JSON line describing the kernels and, last, the result line.
 Any failed check ends the run with a non-zero exit code.
 """
@@ -43,6 +62,7 @@ Any failed check ends the run with a non-zero exit code.
 import dataclasses
 import json
 import logging
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -56,14 +76,16 @@ import torch
 
 from surfelmeshing_tpu.config import SurfelMeshingConfig
 from surfelmeshing_tpu.io.synthetic import synthetic_rgbd_video
+from surfelmeshing_tpu.utils.stage_trace import COLUMNS
 from surfelmeshing_tpu_torch.app import main as app_main
+from surfelmeshing_tpu_torch.eval import ab_matrix as AB
 from surfelmeshing_tpu_torch.io.checkpoint import load_checkpoint
 from surfelmeshing_tpu_torch.meshing import MeshingDriver
 from surfelmeshing_tpu_torch.ops import blend, cuda_build
 from surfelmeshing_tpu_torch.ops import fusion as F
 from surfelmeshing_tpu_torch.ops import gather as G
 from surfelmeshing_tpu_torch.pipeline import ReconstructionPipeline
-from surfelmeshing_tpu_torch.tools import gather_probe
+from surfelmeshing_tpu_torch.tools import fidelity_anchor, gather_probe
 
 SCALE = 5000.0
 KERNEL_TOL = 1.0          # depth units after the floor
@@ -157,17 +179,49 @@ def live_pack(pipe) -> np.ndarray:
     return F.state_to_numpy(pipe.state)["pack"][:count]
 
 
-def phase_slice(device):
-    cfg = SurfelMeshingConfig(max_surfel_count=500_000, restrict_fps_to=0)
-    video, seq = synthetic_rgbd_video(24, 640, 480, noise_sigma=0.002)
+def live_state(pipe) -> dict:
+    """Host copy of the state's live rows and counters."""
+    count = pipe.surfel_count()
+    return F.state_to_numpy(dataclasses.replace(
+        pipe.state, pack=pipe.state.pack[:count],
+        neighbors=pipe.state.neighbors[:, :count],
+        nbr_dist=pipe.state.nbr_dist[:, :count]))
+
+
+STATE_FIELDS = ("pack", "neighbors", "nbr_dist", "surfel_count",
+                "merge_count", "overflow_count")
+
+
+def states_equal(a: dict, b: dict) -> bool:
+    """Bit-for-bit equality of two live_state() copies: the surfel map and
+    its counters (the tiling's own counters aside)."""
+    return all(a[k].shape == b[k].shape and
+               np.array_equal(a[k].view(np.int32), b[k].view(np.int32))
+               for k in STATE_FIELDS)
+
+
+SLICE_FRAMES = 24
+
+
+def slice_config(**kw) -> SurfelMeshingConfig:
+    return SurfelMeshingConfig(max_surfel_count=500_000, restrict_fps_to=0,
+                               **kw)
+
+
+def run_slice(device, video, cfg, modes=None, taps=None) -> dict:
+    """ReconstructionPipeline over every frame of `video` with `cfg` and the
+    fusion modes `modes`; blending-kernel launches counted over the run,
+    CUDA events around each fused frame and over the frames after
+    WARMUP_FRAMES fused.  Logs every fused frame's timings line when
+    cfg.log_timings is set, as the app does."""
     pipe = ReconstructionPipeline(cfg, video.depth_camera, device)
+    if modes:
+        pipe.fusion_params = dataclasses.replace(pipe.fusion_params, **modes)
     half = cfg.outlier_filtering_frame_count // 2
     fused_frames = list(range(half, video.frame_count - half))
-    taps = {}
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-
-    torch.cuda.reset_peak_memory_stats()
+    frame_events = []
     blend.blend_core.launches = 0
     fused = 0
     for i in range(video.frame_count):
@@ -175,17 +229,33 @@ def phase_slice(device):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             start.record()
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        events[0].record()
         result = pipe.process_frame(video, i,
                                     taps=taps if fused == 0 else None)
-        fused += result is not None
+        events[1].record()
+        if result is not None:
+            fused += 1
+            frame_events.append(events)
+            if cfg.log_timings:
+                pipe.log_frame_timings(i)
         if i == fused_frames[-1]:
             end.record()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-    launches = blend.blend_core.launches
-
     timed = len(fused_frames) - WARMUP_FRAMES
-    ms_frame = start.elapsed_time(end) / timed
+    check(fused == len(fused_frames), "not every full-window frame fused")
+    return dict(pipe=pipe, fused=fused, launches=blend.blend_core.launches,
+                timed=timed, ms_frame=start.elapsed_time(end) / timed,
+                wall_ms=1000.0 * wall / timed,
+                frame_ms=[a.elapsed_time(b) for a, b in frame_events])
+
+
+def phase_slice(device, video, seq) -> dict:
+    taps = {}
+    torch.cuda.reset_peak_memory_stats()
+    run = run_slice(device, video, slice_config(), taps=taps)
+    pipe, fused, launches = run["pipe"], run["fused"], run["launches"]
     count = pipe.surfel_count()
     pack = live_pack(pipe)
     cols = [F.PX, F.PY, F.PZ, F.SX, F.SY, F.SZ, F.NX, F.NY, F.NZ, F.CONF]
@@ -193,19 +263,20 @@ def phase_slice(device):
     dist = seq.surface_distance(alive[:, F.SX:F.SZ + 1])
     print(f"[slice] 640x480, 500k capacity: {fused} frames fused, "
           f"{launches} blend launches, surfel count {count}, overflow "
-          f"{int(pipe.state.overflow_count)}, {ms_frame:.3f} ms/frame "
-          f"(CUDA events over {timed} frames after {WARMUP_FRAMES} warm-up; "
-          f"host wall {1000 * wall / timed:.3f} ms/frame), median surface "
-          f"distance {1000 * float(np.median(dist)):.3f} mm, {peak_mib()} "
-          f"MiB peak device memory allocated")
-    check(fused == len(fused_frames), "not every full-window frame fused")
+          f"{int(pipe.state.overflow_count)}, {run['ms_frame']:.3f} ms/frame "
+          f"(CUDA events over {run['timed']} frames after {WARMUP_FRAMES} "
+          f"warm-up; host wall {run['wall_ms']:.3f} ms/frame), median "
+          f"surface distance {1000 * float(np.median(dist)):.3f} mm, "
+          f"{peak_mib()} MiB peak device memory allocated")
     check(count > 0, "no surfels")
     check(int(pipe.state.overflow_count) == 0, "surfel overflow")
     check(np.isfinite(pack[:, cols]).all(), "NaN/inf in live surfel rows")
     check(launches == fused, f"{launches} kernel launches for {fused} "
           f"fused frames")
     check(float(np.median(dist)) < 0.005, "surfels off the scene surface")
-    return launches, taps, pipe.fusion_params.measurement_blending_radius
+    return dict(launches=launches, taps=taps, ms_frame=run["ms_frame"],
+                radius=pipe.fusion_params.measurement_blending_radius,
+                state=live_state(pipe))
 
 
 def phase_slice_inputs(taps, radius) -> float:
@@ -225,22 +296,31 @@ def mean_nearest_distance(a: np.ndarray, b: np.ndarray, device) -> float:
                             for c in a.split(4096)]).mean())
 
 
-def phase_gpu_vs_cpu(device):
+def gpu_and_cpu_runs(device, modes=None):
+    """The port at 160x120 over 6 fused frames on the card and on the CPU
+    (plain versions), fusion modes `modes`; -> the two live states."""
     cfg = SurfelMeshingConfig(max_surfel_count=65_536, restrict_fps_to=0)
     half = cfg.outlier_filtering_frame_count // 2
-    packs = []
+    states = []
     for dev in (device, torch.device("cpu")):
         video, _ = synthetic_rgbd_video(6 + 2 * half, 160, 120,
                                         noise_sigma=0.002)
         pipe = ReconstructionPipeline(cfg, video.depth_camera, dev)
+        if modes:
+            pipe.fusion_params = dataclasses.replace(pipe.fusion_params,
+                                                     **modes)
         fused = sum(pipe.process_frame(video, i) is not None
                     for i in range(video.frame_count))
         check(fused == 6, f"{fused} frames fused on {dev}")
-        packs.append(live_pack(pipe))
-    gpu, cpu = packs
+        states.append(live_state(pipe))
+    return states
+
+
+def phase_gpu_vs_cpu(device):
+    gpu_state, cpu_state = gpu_and_cpu_runs(device)
+    gpu, cpu = gpu_state["pack"], cpu_state["pack"]
     count_ok = abs(len(gpu) - len(cpu)) <= 0.01 * len(cpu)
-    exact = len(gpu) == len(cpu) and \
-        np.array_equal(gpu.view(np.int32), cpu.view(np.int32))
+    exact = states_equal(gpu_state, cpu_state)
     close = len(gpu) == len(cpu) and np.allclose(gpu, cpu, rtol=3e-5,
                                                  atol=3e-6)
     alive_g = gpu[gpu[:, F.RAD] >= 0][:, F.SX:F.SZ + 1]
@@ -250,6 +330,139 @@ def phase_gpu_vs_cpu(device):
           f"CPU {len(cpu)}; bit-identical {exact}; within rtol 3e-5 "
           f"atol 3e-6 {close}; mean nearest-surfel distance {dist:.3e} m")
     check(close or (count_ok and dist < 5e-4), "GPU and CPU slices disagree")
+
+
+# The reference-parity fusion modes: each switch alone, then all three.
+EXACT_MODES = AB.MODES[1:]
+
+
+def phase_exact(device, video, slice_run) -> None:
+    """Each reference-parity mode, and all three, on the slice's frames at
+    640x480 / 500k: surfels, no overflow, one blending launch per fused
+    frame, ms/frame beside [slice]'s defaults; exact_all twice, bit for
+    bit; then each mode on the card and on the CPU at 160x120, bit for
+    bit."""
+    t0 = time.perf_counter()
+    states = {}
+    for name, modes in EXACT_MODES + EXACT_MODES[-1:]:
+        run = run_slice(device, video, slice_config(), modes=modes)
+        pipe = run["pipe"]
+        state = live_state(pipe)
+        count = len(state["pack"])
+        print(f"[exact] {name} at 640x480, 500k capacity: {run['fused']} "
+              f"frames fused, {run['launches']} blend launches, {count} "
+              f"surfels, {int(state['merge_count'])} merges, overflow "
+              f"{int(state['overflow_count'])}; {run['ms_frame']:.3f} "
+              f"ms/frame CUDA events (host wall {run['wall_ms']:.3f}) "
+              f"against the defaults' {slice_run['ms_frame']:.3f} in "
+              f"[slice]")
+        check(count > 0, f"{name}: no surfels")
+        check(int(state["overflow_count"]) == 0, f"{name}: surfel overflow")
+        check(np.isfinite(state["pack"][:, F.SX:F.SZ + 1]).all(),
+              f"{name}: NaN/inf smoothed positions")
+        check(run["launches"] == run["fused"], f"{name}: {run['launches']} "
+              f"blend launches for {run['fused']} fused frames")
+        if name in states:
+            check(states_equal(state, states[name]),
+                  f"{name}: two runs differ")
+            print(f"[exact] {name} run twice: final states bit-identical")
+        states[name] = state
+    for name, modes in EXACT_MODES:
+        gpu_state, cpu_state = gpu_and_cpu_runs(device, modes)
+        exact = states_equal(gpu_state, cpu_state)
+        print(f"[exact] {name} at 160x120, 6 fused frames: surfels GPU "
+              f"{len(gpu_state['pack'])} CPU {len(cpu_state['pack'])}; "
+              f"bit-identical {exact}")
+        check(exact, f"{name}: GPU and CPU states differ")
+    print(f"[exact] phase wall {time.perf_counter() - t0:.1f} s")
+
+
+def phase_staged(device, video, slice_run) -> None:
+    """--log_timings_staged at 640x480 with 500k capacity and with the
+    default capacity and the auto active-set budget: the seven fusion
+    columns of the timings lines (mean over the timed frames) beside the
+    CUDA-event time of the whole frame; each state equals [slice]'s
+    unstaged 500k run bit for bit."""
+    t0 = time.perf_counter()
+    for label, capacity, budget in (
+            ("500k", 500_000, 0),
+            ("20M, --active_surfel_budget -1",
+             SurfelMeshingConfig().max_surfel_count, -1)):
+        cfg = dataclasses.replace(
+            slice_config(log_timings="timings.txt", log_timings_staged=True),
+            max_surfel_count=capacity, active_surfel_budget=budget)
+        run = run_slice(device, video, cfg)
+        pipe = run["pipe"]
+        lines = pipe.timings_log_lines[-run["timed"]:]
+        cols = {name: [] for name in ("preprocessing",) + COLUMNS}
+        for line in lines:
+            words = line.split()
+            values = dict(zip(words[0::2], words[1::2]))
+            for name, ms in cols.items():
+                ms.append(float(values[name]))
+        mean = {name: sum(ms) / len(ms) for name, ms in cols.items()}
+        fusion = sum(mean[name] for name in COLUMNS)
+        frame = sum(run["frame_ms"][-run["timed"]:]) / run["timed"]
+        skipped = int(pipe.state.skipped_tile_count)
+        print(f"[staged] {label}: per-phase ms, mean of {run['timed']} "
+              f"frames after {WARMUP_FRAMES} warm-up (CUDA events): " +
+              ", ".join(f"{name} {mean[name]:.3f}" for name in COLUMNS) +
+              f"; sum {fusion:.3f} against {frame:.3f} ms for the whole "
+              f"frame (CUDA events, preprocessing included; host "
+              f"preprocessing {mean['preprocessing']:.3f} ms); "
+              f"{skipped} skipped tiles")
+        check(all(max(cols[name]) > 0 for name in COLUMNS),
+              f"[staged] {label}: a column is always zero")
+        check(skipped == 0, f"[staged] {label}: {skipped} tiles skipped")
+        check(states_equal(live_state(pipe), slice_run["state"]),
+              f"[staged] {label}: state differs from [slice]'s unstaged run")
+        print(f"[staged] {label}: final state bit-identical to [slice]'s "
+              f"unstaged 500k run")
+    print(f"[staged] phase wall {time.perf_counter() - t0:.1f} s")
+
+
+def phase_ab(device) -> None:
+    """The A/B matrix's hostile subset on the card: occlusion and thin
+    scenes on the look-away trajectory, the default and all-exact modes,
+    160x120 over 8 frames; each cell within 5%."""
+    t0 = time.perf_counter()
+    matrix = AB.deviation_matrix(
+        frames=8, width=160, height=120, capacity=65_536,
+        scenes=("occlusion", "thin"), trajectories=("lookaway",),
+        modes=(AB.MODES[0], AB.MODES[-1]), device=device)
+    for key, row in matrix.items():
+        rel = AB.max_rel_deviation(row)
+        print(f"[ab] {key} at 160x120, 8 frames: tpu_defaults "
+              f"{row['tpu_defaults']:.4f} mm, exact_all "
+              f"{row['exact_all']:.4f} mm, max rel deviation "
+              f"{100.0 * rel:.2f}%")
+        check(rel <= 0.05, f"[ab] {key}: deviation {100.0 * rel:.2f}% > 5%")
+    print(f"[ab] phase wall {time.perf_counter() - t0:.1f} s")
+
+
+def start_fidelity(device, pool) -> dict:
+    """The fidelity anchor at 160x120 over 50 frames, first part: the
+    port's fusion on the card, the golden oracle started in `pool`."""
+    t0 = time.perf_counter()
+    run = fidelity_anchor.start_anchor(frames=50, width=160, height=120,
+                                       capacity=65_536, device=device,
+                                       pool=pool)
+    run["wall_s"] = time.perf_counter() - t0
+    return run
+
+
+def phase_fidelity(run) -> None:
+    """The fidelity anchor, last part: the port's mesh within 1 mm (mean)
+    of the golden oracle's."""
+    t0 = time.perf_counter()
+    out = fidelity_anchor.finish_anchor(run)
+    print(f"[fidelity] {json.dumps(out)}")
+    print(f"[fidelity] 160x120, 50 frames: mesh mean distance "
+          f"{out['value']} mm to the oracle's, completeness@1mm "
+          f"{out['completeness_1mm']}; phase wall "
+          f"{run['wall_s'] + time.perf_counter() - t0:.1f} s (the "
+          f"oracle's host time ran beside the other phases)")
+    check(out["value"] <= 1.0, f"[fidelity] mean distance {out['value']} mm")
 
 
 def phase_build():
@@ -443,12 +656,8 @@ def run_e2e(device, cfg, label: str) -> dict:
     check("delta" in tags, f"{label}: no delta snapshot")
     check(rows < max(snaps, 1) * surfels,
           f"{label}: delta snapshots shipped as many rows as full ones")
-    state = F.state_to_numpy(dataclasses.replace(
-        pipe.state, pack=pipe.state.pack[:surfels],
-        neighbors=pipe.state.neighbors[:, :surfels],
-        nbr_dist=pipe.state.nbr_dist[:, :surfels]))
     return dict(summary=summary, split=split, launches=launches, fused=fused,
-                budgets=budgets, state=state)
+                budgets=budgets, state=live_state(pipe))
 
 
 def phase_e2e(device) -> dict:
@@ -477,13 +686,8 @@ def phase_e2e_20m(device, e2e) -> None:
     check(run["launches"] == run["fused"], f"e2e-20m: {run['launches']} "
           f"blend launches for {run['fused']} fused frames")
     want = e2e["state"]
-    for name in ("surfel_count", "merge_count", "overflow_count"):
-        check(int(state[name]) == int(want[name]),
-              f"e2e-20m: {name} {state[name]} != e2e's {want[name]}")
-    for name in ("pack", "neighbors", "nbr_dist"):
-        check(np.array_equal(state[name].view(np.int32),
-                             want[name].view(np.int32)),
-              f"e2e-20m: final {name} differs from e2e's")
+    check(states_equal(state, want), "e2e-20m: final state differs from "
+          "e2e's")
     print(f"[e2e-20m] final pack, neighbors, nbr_dist and counters "
           f"bit-identical to e2e's 500k run ({int(want['surfel_count'])} "
           f"surfels)")
@@ -604,29 +808,50 @@ def main() -> int:
     name = phase_device()
     device = torch.device("cuda")
     phase_build()
-    err, ms, plain_ms = phase_kernel(device)
-    launches, taps, radius = phase_slice(device)
-    err = max(err, phase_slice_inputs(taps, radius))
-    phase_gpu_vs_cpu(device)
-    gathers = phase_gather(device)
-    e2e = phase_e2e(device)
-    phase_e2e_20m(device, e2e)
-    ply = phase_app(device)
-    phase_app_20m(device, ply)
-    replaces = {"gather_rows": "tools/gather_probe.py:55",
-                "gather_rows3": "tools/gather_probe.py:80",
-                "gather_lane": "tools/gather_probe.py:103"}
-    kernels = [kernel_entry("blend_core", "blend.cu",
-                            "surfelmeshing_tpu/ops/fusion.py:1715", launches,
-                            err, ms, plain_ms)]
-    kernels += [kernel_entry(k, "gather.cu", replaces[k], g["launches"],
-                             g["max_abs_err"], g["ms"], g["plain_ms"])
-                for k, g in gathers.items()]
+    # The fidelity anchor's host-side oracle runs in a worker process while
+    # the other phases use the card; the pool is torn down on every exit.
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    try:
+        anchor = start_fidelity(device, pool)
+        kernels = run_phases(device, anchor)
+    finally:
+        pool.terminate()
+        pool.join()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def run_phases(device, anchor) -> list:
+    """Phases 3-14 and the end of 15; -> the kernels line's entries."""
+    err, ms, plain_ms = phase_kernel(device)
+    video, seq = synthetic_rgbd_video(SLICE_FRAMES, 640, 480,
+                                      noise_sigma=0.002)
+    slice_run = phase_slice(device, video, seq)
+    err = max(err, phase_slice_inputs(slice_run["taps"],
+                                      slice_run["radius"]))
+    phase_gpu_vs_cpu(device)
+    phase_exact(device, video, slice_run)
+    phase_staged(device, video, slice_run)
+    phase_ab(device)
+    gathers = phase_gather(device)
+    e2e = phase_e2e(device)
+    phase_e2e_20m(device, e2e)
+    ply = phase_app(device)
+    phase_app_20m(device, ply)
+    phase_fidelity(anchor)
+    replaces = {"gather_rows": "tools/gather_probe.py:55",
+                "gather_rows3": "tools/gather_probe.py:80",
+                "gather_lane": "tools/gather_probe.py:103"}
+    kernels = [kernel_entry("blend_core", "blend.cu",
+                            "surfelmeshing_tpu/ops/fusion.py:1715",
+                            slice_run["launches"], err, ms, plain_ms)]
+    kernels += [kernel_entry(k, "gather.cu", replaces[k], g["launches"],
+                             g["max_abs_err"], g["ms"], g["plain_ms"])
+                for k, g in gathers.items()]
+    return kernels
 
 
 if __name__ == "__main__":

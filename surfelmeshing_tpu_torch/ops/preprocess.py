@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import math
 import struct
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -479,22 +479,34 @@ def preprocess_frame(
     point_radius_extension_factor: float,
     point_radius_clamp_factor: float,
     fx: float, fy: float, cx: float, cy: float,
+    on_stage: Optional[Callable[[str, torch.Tensor], None]] = None,
 ):
     """Full preprocessing chain for one frame (main-loop order,
     main.cc:1014-1191).
 
     Returns (depth int32, normals_xy (2,H,W) f32, radius_sq (H,W) f32).
+    `on_stage(name, depth)` sees the depth after each pass, under the JAX
+    pipeline's --debug_depth_preprocessing names.
     """
+    def stage(name, d):
+        if on_stage is not None:
+            on_stage(name, d)
+
     d = bilateral_filter_and_cutoff(
         depth, sigma_xy, sigma_value_factor, radius_factor,
         max_depth_u16, depth_valid_region_radius)
+    stage("1_bilateral", d)
     d = outlier_depth_map_fusion(
         d, other_depths, others_T_reference, fx, fy, cx, cy,
         tolerance, required_inliers)
+    stage("2_outlier_filtered", d)
     d = erode_depth(d, erosion_radius)
+    stage("3_eroded", d)
     d, normals_xy = compute_normals_and_drop_bad_pixels(
         d, observation_angle_threshold_deg, depth_scaling, fx, fy, cx, cy)
+    stage("4_bad_normals_dropped", d)
     d, radius_sq = compute_point_radii_and_remove_isolated(
         d, point_radius_extension_factor, point_radius_clamp_factor,
         depth_scaling, fx, fy, cx, cy)
+    stage("5_isolated_removed", d)
     return d, normals_xy, radius_sq

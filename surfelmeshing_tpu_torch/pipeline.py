@@ -19,12 +19,18 @@ are outstanding, the JAX package's throttle.
 
 Stage timings are host times around eager calls that return before the
 device finishes; a snapshot reads the device and so includes the wait for
-the frames queued before it.
+the frames queued before it.  With log_timings and log_timings_staged set,
+the fusion phases are timed on the device instead (fusion.StageTimer, one
+synchronisation a frame), under the reference's per-phase columns.
+debug_depth_preprocessing saves each preprocessing pass as a PNG under
+./debug_preprocessing, as the JAX pipeline does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import os
 import time
 from typing import Dict, Optional
 
@@ -39,8 +45,9 @@ from surfelmeshing_tpu.utils.timing import Timing, format_frame_timings_line
 
 from . import resolve_device
 from .ops import preprocess as pp
-from .ops.fusion import (FusionParams, SurfelState, create_surfel_state,
-                         export_vertices, integrate_frame, meshing_snapshot,
+from .ops.fusion import (FusionParams, StageTimer, SurfelState,
+                         create_surfel_state, export_vertices,
+                         integrate_frame, meshing_snapshot,
                          meshing_snapshot_delta, normals)
 
 
@@ -77,20 +84,12 @@ def fusion_params_from_config(config: SurfelMeshingConfig,
     )
 
 
-# Options of the JAX pipeline that the port refuses rather than ignores.
-UNPORTED_OPTIONS = ("log_timings_staged", "debug_depth_preprocessing")
-
-
 class ReconstructionPipeline:
     """Depth preprocessing + surfel fusion over an RGB-D stream."""
 
     def __init__(self, config: SurfelMeshingConfig, camera: PinholeCamera,
                  device):
         config.validate()
-        for name in UNPORTED_OPTIONS:
-            value = getattr(config, name)
-            if value:
-                raise NotImplementedError(f"{name}={value} is not ported yet")
         self.config = config
         self.camera = camera.pyramid_level(config.pyramid_level)
         self.device = resolve_device(device)
@@ -163,22 +162,29 @@ class ReconstructionPipeline:
             depth = pp.downscale_median_excluding(depth, factor)
             others = [pp.downscale_median_excluding(o, factor)
                       for o in others]
+        dump = functools.partial(self._dump_depth, frame_index) \
+            if cfg.debug_depth_preprocessing else None
         d, nrm, rad = pp.preprocess_frame(
             depth, torch.stack(others), self._to_device(transforms),
-            **self._pp_kwargs())
+            **self._pp_kwargs(), on_stage=dump)
         t1 = time.perf_counter()
         color = torch.from_numpy(self._frame_color(video, frame_index)) \
             .to(self.device)
         t_gl, t_lg = self._frame_pose(video, frame_index)
+        stages = StageTimer(self.device) \
+            if cfg.log_timings and cfg.log_timings_staged else None
         self.state = integrate_frame(
             self.state, d, nrm, rad, color, self._to_device(t_gl),
-            self._to_device(t_lg), frame_index, self._frame_params(), taps)
+            self._to_device(t_lg), frame_index, self._frame_params(), taps,
+            stages)
         self._queue_count_readback()
         t2 = time.perf_counter()
         self.timing.add_time("preprocessing", t1 - t0)
         self.timing.add_time("integration", t2 - t1)
         self._last_stage_ms = {"preprocessing": 1000.0 * (t1 - t0),
                                "integration": 1000.0 * (t2 - t1)}
+        if stages is not None:
+            self._last_stage_ms.update(stages.stage_ms())
 
         self._retire_depth(frame_index - half_window)
         video.color_frames[frame_index].clear_image()
@@ -316,6 +322,21 @@ class ReconstructionPipeline:
         pose = video.depth_frames[frame_index].global_T_frame
         return (pose.matrix3x4().astype(np.float32),
                 pose.inverse().matrix3x4().astype(np.float32))
+
+    def _dump_depth(self, frame_index: int, stage: str,
+                    depth: torch.Tensor) -> None:
+        """--debug_depth_preprocessing: one pass's depth as an 8-bit PNG
+        scaled to max_depth (the JAX pipeline's _dump_preprocessing_stages;
+        the reference shows the passes in windows, main.cc:1028-1176)."""
+        from PIL import Image
+
+        cfg = self.config
+        os.makedirs("debug_preprocessing", exist_ok=True)
+        arr = depth.cpu().numpy().astype(np.float32)
+        vmax = cfg.depth_scaling * cfg.max_depth
+        vis = np.clip(255.0 * arr / max(vmax, 1.0), 0, 255).astype(np.uint8)
+        Image.fromarray(vis).save(
+            f"debug_preprocessing/frame{frame_index:06d}_{stage}.png")
 
     def _required_inliers(self):
         cfg = self.config

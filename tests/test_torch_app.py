@@ -11,6 +11,7 @@ in the bilateral filter and the fusion step, which moves a few neighbor
 slots; ROADMAP queue 3.)
 """
 
+import json
 import logging
 import os
 
@@ -93,11 +94,21 @@ def test_app_auto_active_budget(tmp_path, monkeypatch, caplog):
 
 
 @pytest.mark.parametrize("flags", [["--create_video"],
-                                   ["--live_viewer", "8123"],
-                                   ["--profile_dir", "trace"]])
+                                   ["--live_viewer", "8123"]])
 def test_unported_app_options_raise(flags):
     with pytest.raises(NotImplementedError):
         main(["--device", "cpu", *FLAGS, *flags, *DATASET])
+
+
+def test_profile_dir_writes_a_trace(tmp_path, monkeypatch):
+    """--profile_dir: a torch.profiler Chrome trace of the frame loop, with
+    the fusion step's operators in it."""
+    monkeypatch.chdir(tmp_path)
+    assert main(["--device", "cpu", *FLAGS, "--end_frame", "4",
+                 "--profile_dir", "trace", *DATASET]) == 0
+    trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
+    names = {e.get("name") for e in trace["traceEvents"]}
+    assert "aten::scatter_reduce_" in names
 
 
 def test_app_never_falls_back_to_cpu(monkeypatch):

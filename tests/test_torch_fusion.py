@@ -19,8 +19,8 @@ import jax.numpy as jnp
 from surfelmeshing_tpu.ops import fusion as JF
 from surfelmeshing_tpu_torch.ops import fusion as TF
 
-from test_golden_fusion import (CX, CY, FX, FY, H, IDENT, PARAMS, SCALE, W,
-                                assert_pack_close, noisy_wall)
+from test_golden_fusion import (H, IDENT, PARAMS, SCALE, W, assert_pack_close,
+                                noisy_wall)
 
 torch.set_num_threads(1)
 
@@ -230,14 +230,111 @@ def test_state_numpy_round_trip_keeps_bits():
     assert (back["neighbors"] == INVALID).all()
 
 
-@pytest.mark.parametrize("field,value", [
-    ("symmetric_regularization", False),
-    ("exact_conflict_arbitration", True),
-    ("fast_neighbor_update", False)])
-def test_unported_modes_raise(field, value):
-    with pytest.raises(NotImplementedError):
-        TF.FusionParams(width=W, height=H, fx=FX, fy=FY, cx=CX, cy=CY,
-                        **{field: value})
+EXACT_MODES = {
+    "symmetric_regularization-False": dict(symmetric_regularization=False),
+    "exact_conflict_arbitration-True": dict(exact_conflict_arbitration=True),
+    "fast_neighbor_update-False": dict(fast_neighbor_update=False),
+    "exact_all": dict(symmetric_regularization=False,
+                      exact_conflict_arbitration=True,
+                      fast_neighbor_update=False)}
+
+
+@pytest.mark.parametrize("modes", EXACT_MODES.values(),
+                         ids=EXACT_MODES.keys())
+def test_unported_modes_raise(modes):
+    """Each reference-parity mode (once refused), and all three at once,
+    matches eager JAX phase by phase over four frames: the three of
+    test_three_frames_all_taps, then a frame where two planted surfels
+    float in front of the wall at the same position, so they project to
+    one pixel with bitwise-equal depth.  That tie is where the exact
+    conflictor map differs from the default: only the lower index
+    decrements."""
+    params = dataclasses.replace(PARAMS, **modes)
+    jstate = JF.create_surfel_state(4096)
+    tstate = TF.create_surfel_state(4096, "cpu")
+    for frame, (seed, hole, yaw, tx) in enumerate(
+            [(0, True, 0.0, 0.0), (1, False, 0.01, 0.005),
+             (2, True, 0.02, 0.01)]):
+        jstate, tstate = compare_frame(jstate, tstate,
+                                       noisy_wall(seed=seed, hole=hole),
+                                       frame, params,
+                                       pose(yaw, (tx, 0.0, 0.0)))
+    count = int(jstate.surfel_count)
+    for i in (count, count + 1):
+        jstate = JF.plant_surfel(jstate, i, pos=[0.0, 0.0, 1.0],
+                                 normal=[0, 0, -1], confidence=2.0,
+                                 radius_sq=0.001, stamp=2)
+    jstate = jstate._replace(surfel_count=jnp.int32(count + 2))
+    _, tstate = compare_frame(jstate, to_port(jstate), noisy_wall(seed=3), 3,
+                              params)
+    conf = TF.confidences(tstate)[count:count + 2].tolist()
+    assert conf == ([1.0, 2.0] if params.exact_conflict_arbitration
+                    else [1.0, 1.0])
+
+
+def test_exact_cross_terms_sum_in_stream_order():
+    """The exact cross terms (symmetric_regularization=False) are float
+    scatter-adds, so their order shows in the last bit.  XLA:CPU adds the
+    updates of a target in stream order (pinned against a sequential
+    float32 loop); _ordered_scatter_add reproduces that order, bit for
+    bit, and so does the whole regularization step against eager JAX on a
+    state where surfel 0 is the recent neighbor of seven others."""
+    rng = np.random.default_rng(11)
+    n = 64
+    index = rng.integers(0, n, 4 * n).astype(np.int32)
+    index[rng.choice(4 * n, 40, replace=False)] = INVALID
+    to_zero = [3, 40, 77, 130, 131, 200, 255]
+    index[to_zero] = 0
+    values = (rng.standard_normal(4 * n) *
+              10.0 ** rng.uniform(-3, 3, 4 * n)).astype(np.float32)
+    values[to_zero] = [1.0, 1e8, -1e8, 3e-3, 7.0, -2.5e-2, 1.234567]
+    want = np.zeros(n, np.float32)
+    for i, v in zip(index, values):
+        if i != INVALID:
+            want[i] = np.float32(want[i] + v)
+    reverse = np.float32(0.0)
+    for v in values[index == 0][::-1]:
+        reverse = np.float32(reverse + v)
+    assert reverse != want[0]          # the order shows at target 0
+    got_jax = np.asarray(jnp.zeros(n, jnp.float32).at[index].add(
+        values, mode="drop"))
+    np.testing.assert_array_equal(got_jax.view(np.int32), want.view(np.int32))
+    got = TF._ordered_scatter_add(n, torch.from_numpy(index),
+                                  torch.from_numpy(values)[None])[0]
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.view(np.int32))
+
+    # The whole step: surfel 0 sits in a slot of surfels 1..7.
+    params = dataclasses.replace(PARAMS, symmetric_regularization=False)
+    jstate = JF.create_surfel_state(n)
+    for i in range(n):
+        p = np.array([0.01 * (i % 8), 0.01 * (i // 8), 2.0]) + \
+            0.002 * rng.standard_normal(3)
+        nrm = np.array([0.0, 0.0, -1.0]) + 0.2 * rng.standard_normal(3)
+        jstate = JF.plant_surfel(jstate, i, pos=p, normal=nrm / np.linalg.norm(
+            nrm), radius_sq=0.01, stamp=5,
+            smooth=p + 0.003 * rng.standard_normal(3))
+    nbrs = rng.integers(0, n, (4, n)).astype(np.int32)
+    nbrs[rng.integers(0, 4, 7), np.arange(1, 8)] = 0
+    jstate = jstate._replace(neighbors=jnp.asarray(nbrs),
+                             surfel_count=jnp.int32(n))
+    with jax.disable_jit():
+        jout = JF.regularize_only(jstate, jnp.int32(5), params)
+    tout = TF.regularize_only(to_port(jstate), 5, TF.params_from(params))
+    got = TF.state_to_numpy(tout)
+    np.testing.assert_array_equal(got["pack"].view(np.int32),
+                                  np.asarray(jout.pack).view(np.int32))
+    np.testing.assert_array_equal(got["neighbors"],
+                                  np.asarray(jout.neighbors))
+    assert (got["pack"][:, TF.RCNT] == 0).all()     # not written here
+
+
+def test_tiling_refuses_exact_regularization():
+    params = dataclasses.replace(PARAMS, symmetric_regularization=False,
+                                 active_surfel_budget=2048, tile_size=1024)
+    with pytest.raises(ValueError, match="symmetric_regularization"):
+        port_step(TF.create_surfel_state(4096, "cpu"), noisy_wall(seed=0), 0,
+                  params)
 
 
 def test_create_state_refuses_missing_cuda(monkeypatch):

@@ -14,8 +14,9 @@ ALLOWED_REFERENCE_MODULES = {
     "surfelmeshing_tpu.io.tum", "surfelmeshing_tpu.io.synthetic",
     "surfelmeshing_tpu.io.mesh_io", "surfelmeshing_tpu.utils.se3",
     "surfelmeshing_tpu.utils.camera", "surfelmeshing_tpu.utils.spline",
-    "surfelmeshing_tpu.utils.timing", "surfelmeshing_tpu.meshing.engine",
-    "surfelmeshing_tpu.meshing.driver"}
+    "surfelmeshing_tpu.utils.timing", "surfelmeshing_tpu.utils.stage_trace",
+    "surfelmeshing_tpu.meshing.engine", "surfelmeshing_tpu.meshing.driver",
+    "surfelmeshing_tpu.eval.mesh_accuracy"}
 
 
 def imported_modules(path: Path):
@@ -52,7 +53,8 @@ def test_port_has_modules():
     assert {"__init__.py", "pipeline.py", "ops/preprocess.py",
             "ops/fusion.py", "ops/blend.py", "ops/gather.py",
             "ops/cuda_build.py", "meshing.py", "io/checkpoint.py",
-            "app/main.py", "tools/gather_probe.py"} <= names
+            "app/main.py", "app/evaluate.py", "eval/ab_matrix.py",
+            "tools/gather_probe.py", "tools/fidelity_anchor.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -67,6 +69,7 @@ def test_guard_catches_forbidden_imports():
     assert forbidden("surfelmeshing_tpu.ops.fusion")
     assert forbidden("surfelmeshing_tpu.io.checkpoint")
     assert forbidden("surfelmeshing_tpu.pipeline")
+    assert forbidden("surfelmeshing_tpu.eval.ab_matrix")
     assert not forbidden("surfelmeshing_tpu.io.tum")
     assert not forbidden("torch")
 

@@ -15,10 +15,12 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from surfelmeshing_tpu.config import SurfelMeshingConfig
 from surfelmeshing_tpu.io.synthetic import synthetic_rgbd_video
 from surfelmeshing_tpu.pipeline import ReconstructionPipeline as JaxPipeline
+from surfelmeshing_tpu.utils.stage_trace import COLUMNS
 from surfelmeshing_tpu_torch.ops import fusion as TF
 from surfelmeshing_tpu_torch.pipeline import ReconstructionPipeline
 
@@ -124,15 +126,74 @@ def test_auto_budget_pipeline_matches_jax(record_property):
 
 
 def test_unported_options_raise():
+    """Every pipeline option of the JAX package is accepted now."""
     video, _ = synthetic_rgbd_video(1, W, H)
     for kw in (dict(log_timings_staged=True),
                dict(debug_depth_preprocessing=True)):
         cfg = SurfelMeshingConfig(max_surfel_count=1024, **kw)
-        with pytest.raises(NotImplementedError):
-            ReconstructionPipeline(cfg, video.depth_camera, "cpu")
+        pipe = ReconstructionPipeline(cfg, video.depth_camera, "cpu")
+        assert all(getattr(pipe.config, k) == v for k, v in kw.items())
     # Active-set tiling is ported: the flag is accepted and the capacity
     # rounded up to whole tiles, as in the JAX pipeline.
     cfg = SurfelMeshingConfig(max_surfel_count=1024, active_surfel_budget=4096)
     pipe = ReconstructionPipeline(cfg, video.depth_camera, "cpu")
     assert pipe.fusion_params.active_surfel_budget == 4096
     assert pipe.state.pack.shape[0] == 4096 == pipe.active_budget()
+
+
+@pytest.fixture(scope="module")
+def staged():
+    """The fixture's port run again with --log_timings_staged: the log
+    lines of its fused frames and the pipeline."""
+    cfg = dataclasses.replace(CONFIG, log_timings="timings.txt",
+                              log_timings_staged=True)
+    video, _ = synthetic_rgbd_video(FRAMES, W, H, noise_sigma=0.002)
+    pipe = ReconstructionPipeline(cfg, video.depth_camera, "cpu")
+    for i in range(FRAMES):
+        if pipe.process_frame(video, i) is not None:
+            pipe.log_frame_timings(i)
+    return pipe.timings_log_lines, pipe
+
+
+def test_staged_timings_write_all_columns(staged):
+    """Each log line carries the seven fusion columns of the reference's
+    format (main.cc:1531-1545), each above 0 on some frame."""
+    lines, _ = staged
+    assert len(lines) == FRAMES - 2
+    columns = {}
+    for line in lines:
+        words = line.split()
+        values = dict(zip(words[0::2], words[1::2]))
+        for name in COLUMNS:
+            columns.setdefault(name, []).append(float(values[name]))
+    assert set(columns) == set(COLUMNS)
+    for name, ms in columns.items():
+        assert max(ms) > 0, name
+
+
+def test_staged_state_equals_unstaged(runs, staged):
+    """Timing the phases changes nothing: the state is the unstaged run's,
+    bit for bit."""
+    want = TF.state_to_numpy(runs[1].state)
+    got = TF.state_to_numpy(staged[1].state)
+    for name, arr in want.items():
+        np.testing.assert_array_equal(got[name].view(np.int32),
+                                      arr.view(np.int32), err_msg=name)
+
+
+def test_debug_depth_preprocessing_writes_five_pngs(tmp_path, monkeypatch):
+    """The five per-pass PNGs of the JAX pipeline, same names, in
+    ./debug_preprocessing."""
+    monkeypatch.chdir(tmp_path)
+    cfg = dataclasses.replace(CONFIG, debug_depth_preprocessing=True)
+    video, _ = synthetic_rgbd_video(3, W, H, noise_sigma=0.002)
+    pipe = ReconstructionPipeline(cfg, video.depth_camera, "cpu")
+    fused = [i for i in range(3) if pipe.process_frame(video, i) is not None]
+    assert fused == [1]
+    names = sorted(p.name for p in (tmp_path / "debug_preprocessing")
+                   .iterdir())
+    assert names == [f"frame000001_{s}.png" for s in (
+        "1_bilateral", "2_outlier_filtered", "3_eroded",
+        "4_bad_normals_dropped", "5_isolated_removed")]
+    with Image.open(tmp_path / "debug_preprocessing" / names[0]) as img:
+        assert img.size == (W, H) and img.mode == "L"
