@@ -5,14 +5,21 @@
 Phases, each printing one or more lines:
   1. device: requires CUDA (exits non-zero otherwise), prints the card and
      its power limit, turns TF32 off;
-  2. build: compiles csrc/blend.cu and csrc/gather.cu, one nvcc each,
-     started together;
-  3. kernel: the blending kernel vs its plain PyTorch version on seeded
-     maps (640x480 radius 12, 24x32 radius 6), both timed at 640x480;
+  2. build: compiles csrc/blend.cu and csrc/gather.cu (one nvcc each) and
+     the native mesher (g++), all started together;
+  3. kernel: the blending kernel bit for bit against its plain PyTorch
+     version on seeded maps at 640x480 with radii 1, 2, 3, 6, 12 and
+     MAX_RADIUS and at radius 12 on shapes that are not multiples of its
+     tile (24x32, 481x641, 240x320, 120x160); at 640x480 radius 12 its
+     device time (a CUDA graph of repeated launches replayed between CUDA
+     events), its host-inclusive time (back-to-back calls between CUDA
+     events) and the plain version's, beside the bound;
   4. slice: ReconstructionPipeline at 640x480 with 500k surfel capacity and
      default settings over the 24-frame synthetic video, every frame with a
      full outlier window fused; launch counts prove the kernel ran;
-  5. kernel on the slice's own blending inputs (captured through the taps);
+  5. kernel on the slice's own blending inputs (captured through the taps
+     on the last warm-up frame, the map holding surfels by then), bit for
+     bit, and its device time on them;
   6. the same port slice on the GPU and on the CPU (plain versions) at
      160x120 over 6 fused frames, held to the CPU tests' tolerance;
   7. exact: the slice with each reference-parity fusion mode
@@ -30,10 +37,12 @@ Phases, each printing one or more lines:
      look-away trajectory, default vs all-exact modes) at 160x120 over 8
      frames, each cell within 5%;
  10. gather: the gather probe (tools/gather_probe.py of the port) at its
-     sizes, every variant timed with CUDA events, launch counts proving the
-     three kernels ran; then each kernel bit for bit against its plain
-     version on sources with NaN-pattern, -0.0 and denormal rows and
-     out-of-range indices, at the probe's sizes and at N = 1 and N = 257;
+     sizes, every variant (kernels, plain versions, torch.index_select)
+     timed on the device and host-inclusive as in phase 3, launch counts
+     proving the three kernels ran; then each kernel bit for bit against
+     its plain version on sources with NaN-pattern, -0.0 and denormal rows
+     and out-of-range indices, at the probe's sizes and at N = 1 and
+     N = 257;
  11. e2e: preprocessing + fusion + asynchronous meshing at 640x480 / 500k
      over the 40-frame synthetic video (tools/bench_e2e.py's run_config):
      8 warm-up frames with a full and a delta snapshot drained, then every
@@ -55,7 +64,10 @@ Phases, each printing one or more lines:
      build: the port fuses on the card and the host-side oracle runs in a
      worker process while phases 3-14 run; the phase ends last.
 Phases 7-9 and 15 print their wall time.
-Then one JSON line describing the kernels and, last, the result line.
+Then one JSON line describing the kernels (per kernel: launches on its
+path and per main-path frame, max_abs_err against the plain version,
+device / host-inclusive / plain times, the bound with what sets it, and
+the one-call PyTorch yardstick or null) and, last, the result line.
 Any failed check ends the run with a non-zero exit code.
 """
 
@@ -74,23 +86,26 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from surfelmeshing_tpu.config import SurfelMeshingConfig
-from surfelmeshing_tpu.io.synthetic import synthetic_rgbd_video
-from surfelmeshing_tpu.utils.stage_trace import COLUMNS
 from surfelmeshing_tpu_torch.app import main as app_main
+from surfelmeshing_tpu_torch.config import SurfelMeshingConfig
 from surfelmeshing_tpu_torch.eval import ab_matrix as AB
 from surfelmeshing_tpu_torch.io.checkpoint import load_checkpoint
-from surfelmeshing_tpu_torch.meshing import MeshingDriver
+from surfelmeshing_tpu_torch.io.synthetic import synthetic_rgbd_video
+from surfelmeshing_tpu_torch.meshing import MeshingDriver, engine
 from surfelmeshing_tpu_torch.ops import blend, cuda_build
 from surfelmeshing_tpu_torch.ops import fusion as F
 from surfelmeshing_tpu_torch.ops import gather as G
 from surfelmeshing_tpu_torch.pipeline import ReconstructionPipeline
-from surfelmeshing_tpu_torch.tools import fidelity_anchor, gather_probe
+from surfelmeshing_tpu_torch.tools import (fidelity_anchor, gather_probe,
+                                           kernel_timing)
 
 SCALE = 5000.0
-KERNEL_TOL = 1.0          # depth units after the floor
 WARMUP_FRAMES = 4
 KERNEL_SOURCES = ("blend", "gather")
+# Published peaks of one H100 SXM (NVIDIA's data sheet): HBM3 bytes/s and
+# f32 operations/s outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 FIXTURE = Path(__file__).resolve().parent / "tests" / "fixtures" / "tum_micro"
 
 
@@ -132,46 +147,69 @@ def random_maps(h, w, seed, device):
 
 
 def compare_kernel(maps, radius, label) -> float:
-    """Kernel vs plain version on the same CUDA tensors; returns the max
-    absolute difference before the floor."""
+    """Kernel vs plain version on the same CUDA tensors, bit for bit;
+    returns the max absolute difference (0 when they agree)."""
     got = blend.blend_core(*maps, radius, SCALE)
     torch.cuda.synchronize()
     want = blend.blend_core_reference(*maps, radius, SCALE)
-    floored = (torch.floor(got) - torch.floor(want)).abs()
-    max_floor = floored.max().item()
-    share = (floored > 0).float().mean().item()
-    raw = (got - want).abs().max().item()
-    print(f"[kernel] {label} radius {radius}: max |floor diff| {max_floor} "
-          f"depth units, {share:.6f} of pixels differ, max |diff| {raw}")
-    check(max_floor <= KERNEL_TOL, f"kernel disagrees on {label}")
-    return raw
+    exact = bits_equal(got, want)
+    err = max_abs_err(got, want)
+    changed = int((want != maps[0]).sum())
+    print(f"[kernel] {label} {tuple(maps[0].shape)} radius {radius}: "
+          f"bit-identical to the plain version {exact} (max |diff| {err}; "
+          f"{changed} pixels blended)")
+    check(exact, f"blending kernel differs from its plain version on "
+          f"{label} at radius {radius}")
+    return err
 
 
-def time_ms(fn, repeats: int) -> float:
-    for _ in range(3):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(repeats):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / repeats
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: bytes at HBM rate or operations
+    at the f32 rate, whichever is longer."""
+    bytes_ms = 1000.0 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1000.0 * ops / F32_OPS_PER_S
+    return dict(bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def phase_kernel(device):
-    errs = [compare_kernel(random_maps(480, 640, 0, device), 12,
-                           "640x480 seeded maps"),
-            compare_kernel(random_maps(24, 32, 1, device), 6,
-                           "24x32 seeded maps")]
+def blend_bound(h: int, w: int) -> dict:
+    """Four f32 maps read and one written once.  Every pixel changes at
+    most once (dist and ndist leave 255 / 0 once, on disjoint pixel sets),
+    at most 18 f32 operations (init 5, then up to 8 ring adds, the max, the
+    division and 3 for depth), so 18 a pixel bounds the operations from
+    above; that bound is far below the bytes', which therefore set it for
+    every input."""
+    return bound(5 * 4 * h * w, 18 * h * w)
+
+
+def phase_kernel(device) -> dict:
+    err = 0.0
+    for radius in (1, 2, 3, 6, 12, blend.MAX_RADIUS):
+        err = max(err, compare_kernel(random_maps(480, 640, radius, device),
+                                      radius, "seeded maps"))
+    for shape in ((24, 32), (481, 641), (240, 320), (120, 160)):
+        err = max(err, compare_kernel(random_maps(*shape, 1, device), 12,
+                                      "seeded maps"))
     maps = random_maps(480, 640, 2, device)
-    ms = time_ms(lambda: blend.blend_core(*maps, 12, SCALE), 50)
-    plain_ms = time_ms(lambda: blend.blend_core_reference(*maps, 12, SCALE),
-                       10)
-    print(f"[kernel] 640x480 radius 12: kernel {ms:.4f} ms, plain PyTorch "
-          f"{plain_ms:.4f} ms (CUDA events)")
-    return max(errs), ms, plain_ms
+    times = dict(
+        device_ms=kernel_timing.device_ms(
+            lambda: blend.blend_core(*maps, 12, SCALE), 50),
+        host_ms=kernel_timing.host_ms(
+            lambda: blend.blend_core(*maps, 12, SCALE), device, 50),
+        plain_ms=kernel_timing.device_ms(
+            lambda: blend.blend_core_reference(*maps, 12, SCALE), 5),
+        plain_host_ms=kernel_timing.host_ms(
+            lambda: blend.blend_core_reference(*maps, 12, SCALE), device,
+            5),
+        library_ms=None, **blend_bound(480, 640))
+    print(f"[kernel] 640x480 radius 12, seeded maps: device "
+          f"{times['device_ms']:.4f} ms (CUDA graph of 50 launches), "
+          f"host-inclusive {times['host_ms']:.4f} ms; plain PyTorch device "
+          f"{times['plain_ms']:.4f} ms, host-inclusive "
+          f"{times['plain_host_ms']:.4f} ms; bound {times['bound_ms']:.5f} "
+          f"ms ({times['bound_by']}), {100.0 * times['bound_ms'] / times['device_ms']:.1f}% "
+          f"of it reached; no single PyTorch call computes it")
+    return dict(times, max_abs_err=err)
 
 
 def live_pack(pipe) -> np.ndarray:
@@ -232,7 +270,8 @@ def run_slice(device, video, cfg, modes=None, taps=None) -> dict:
         events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         events[0].record()
         result = pipe.process_frame(video, i,
-                                    taps=taps if fused == 0 else None)
+                                    taps=taps if fused == WARMUP_FRAMES - 1
+                                    else None)
         events[1].record()
         if result is not None:
             fused += 1
@@ -274,19 +313,25 @@ def phase_slice(device, video, seq) -> dict:
     check(launches == fused, f"{launches} kernel launches for {fused} "
           f"fused frames")
     check(float(np.median(dist)) < 0.005, "surfels off the scene surface")
-    return dict(launches=launches, taps=taps, ms_frame=run["ms_frame"],
+    return dict(launches=launches, fused=fused, taps=taps,
+                ms_frame=run["ms_frame"],
                 radius=pipe.fusion_params.measurement_blending_radius,
                 state=live_state(pipe))
 
 
 def phase_slice_inputs(taps, radius) -> float:
     h, w = taps["depth"].shape
-    maps = F.blend_inputs(
+    maps = [m.contiguous() for m in F.blend_inputs(
         taps["depth"], taps["supporting_surfels"].reshape(h, w),
         taps["support_counts"].reshape(h, w),
-        taps["support_depth_sums"].reshape(h, w))
-    return compare_kernel([m.contiguous() for m in maps], radius,
-                          "slice blending inputs (first fused frame)")
+        taps["support_depth_sums"].reshape(h, w))]
+    err = compare_kernel(maps, radius, f"slice blending inputs (fused frame "
+                         f"{WARMUP_FRAMES})")
+    ms = kernel_timing.device_ms(
+        lambda: blend.blend_core(*maps, radius, SCALE), 50)
+    print(f"[kernel] slice blending inputs, radius {radius}: device {ms:.4f} "
+          f"ms (CUDA graph of 50 launches)")
+    return err
 
 
 def mean_nearest_distance(a: np.ndarray, b: np.ndarray, device) -> float:
@@ -394,24 +439,24 @@ def phase_staged(device, video, slice_run) -> None:
         run = run_slice(device, video, cfg)
         pipe = run["pipe"]
         lines = pipe.timings_log_lines[-run["timed"]:]
-        cols = {name: [] for name in ("preprocessing",) + COLUMNS}
+        cols = {name: [] for name in ("preprocessing",) + F.COLUMNS}
         for line in lines:
             words = line.split()
             values = dict(zip(words[0::2], words[1::2]))
             for name, ms in cols.items():
                 ms.append(float(values[name]))
         mean = {name: sum(ms) / len(ms) for name, ms in cols.items()}
-        fusion = sum(mean[name] for name in COLUMNS)
+        fusion = sum(mean[name] for name in F.COLUMNS)
         frame = sum(run["frame_ms"][-run["timed"]:]) / run["timed"]
         skipped = int(pipe.state.skipped_tile_count)
         print(f"[staged] {label}: per-phase ms, mean of {run['timed']} "
               f"frames after {WARMUP_FRAMES} warm-up (CUDA events): " +
-              ", ".join(f"{name} {mean[name]:.3f}" for name in COLUMNS) +
+              ", ".join(f"{name} {mean[name]:.3f}" for name in F.COLUMNS) +
               f"; sum {fusion:.3f} against {frame:.3f} ms for the whole "
               f"frame (CUDA events, preprocessing included; host "
               f"preprocessing {mean['preprocessing']:.3f} ms); "
               f"{skipped} skipped tiles")
-        check(all(max(cols[name]) > 0 for name in COLUMNS),
+        check(all(max(cols[name]) > 0 for name in F.COLUMNS),
               f"[staged] {label}: a column is always zero")
         check(skipped == 0, f"[staged] {label}: {skipped} tiles skipped")
         check(states_equal(live_state(pipe), slice_run["state"]),
@@ -467,15 +512,19 @@ def phase_fidelity(run) -> None:
 
 def phase_build():
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
-        paths = list(pool.map(cuda_build.build, KERNEL_SOURCES))
+    builds = [lambda name=name: cuda_build.build(name)
+              for name in KERNEL_SOURCES] + [engine.build_library]
+    with ThreadPoolExecutor(len(builds)) as pool:
+        paths = list(pool.map(lambda build: build(), builds))
     build_s = time.perf_counter() - t0
     blend.load_library()
     G.load_library()
+    engine.MeshingEngine()
     built = ", ".join(f"csrc/{name}.cu -> {path.name}"
                       for name, path in zip(KERNEL_SOURCES, paths))
-    print(f"[build] {built} in {build_s:.2f} s (nvcc, sm_90a, one process "
-          f"per source, started together)")
+    print(f"[build] {built} (nvcc, sm_90a), native/meshing_engine.cc -> "
+          f"{paths[-1].name} (g++) in {build_s:.2f} s, one process per "
+          f"source, started together")
 
 
 GATHERS = (G.gather_rows, G.gather_rows3, G.gather_lane)
@@ -492,39 +541,53 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(torch.where(both, (a - b).abs(), 0.0).max())
 
 
+def gather_bound(idx: torch.Tensor, sources: int) -> dict:
+    """Each index read once, each gathered row of each source read once
+    (the rows this run's indices touch) and each output row written
+    once; no arithmetic."""
+    n, rows = idx.numel(), torch.unique(idx).numel()
+    return bound(4 * n + sources * G.COLS * 4 * (rows + n), 0)
+
+
 def phase_gather(device):
-    """-> ({kernel name: launches, ms, plain_ms, max_abs_err})."""
+    """-> {kernel name: its kernels-line numbers}."""
     for fn in GATHERS:
         fn.launches = 0
-    probe_ms = gather_probe.run_probe(device)
+    probe = gather_probe.run_probe(device)
     launches = {fn.__name__: fn.launches for fn in GATHERS}
     for name, count in launches.items():
         check(count > 0, f"{name} was not launched by the probe")
     src, _, _, idx = gather_probe.make_inputs(device)
     lane_src = src.t().contiguous().t()
-    lane_plain_ms = gather_probe.time_step(
-        lambda: G.gather_lane_reference(lane_src, idx), device)
+    lane_plain = {
+        "device_ms": kernel_timing.device_ms(
+            lambda: G.gather_lane_reference(lane_src, idx)),
+        "host_ms": kernel_timing.host_ms(
+            lambda: G.gather_lane_reference(lane_src, idx), device)}
     print(f"[gather] probe at HW {gather_probe.HW} x {G.COLS}, N "
-          f"{gather_probe.N} (CUDA events, {gather_probe.REPEATS} launches "
-          f"after {gather_probe.WARMUP} warm-up): " + ", ".join(
-              f"{v} {ms:.4f} ms" for v, ms in probe_ms.items()) +
-          f", plain_lane {lane_plain_ms:.4f} ms; launches {launches}")
+          f"{gather_probe.N}, ms a gather-step, device (CUDA graph of "
+          f"{gather_probe.REPEATS}) / host-inclusive: " + ", ".join(
+              f"{v} {t['device_ms']:.4f} / {t['host_ms']:.4f}"
+              for v, t in probe.items()) +
+          f", plain_lane {lane_plain['device_ms']:.4f} / "
+          f"{lane_plain['host_ms']:.4f}; launches {launches}")
 
     errs = {fn.__name__: 0.0 for fn in GATHERS}
     for label, hw, n in (("probe sizes", gather_probe.HW, gather_probe.N),
                          ("N=1", 97, 1), ("N=257", 97, 257)):
-        srcs, idx = gather_probe.special_inputs(hw, n, 7)
-        want = [s[np.clip(idx, 0, hw - 1)] for s in srcs]
+        srcs, idx_np = gather_probe.special_inputs(hw, n, 7)
+        want = [s[np.clip(idx_np, 0, hw - 1)] for s in srcs]
         srcs = [torch.from_numpy(s).to(device) for s in srcs]
-        idx = torch.from_numpy(idx).to(device)
+        special = torch.from_numpy(idx_np).to(device)
         lane_srcs = [s.t().contiguous().t() for s in srcs]
         results = {
-            "gather_rows": ([G.gather_rows(srcs[0], idx)],
-                            [G.gather_rows_reference(srcs[0], idx)]),
-            "gather_rows3": (list(G.gather_rows3(srcs, idx)),
-                             list(G.gather_rows3_reference(srcs, idx))),
-            "gather_lane": ([G.gather_lane(lane_srcs[0], idx)],
-                            [G.gather_lane_reference(lane_srcs[0], idx)]),
+            "gather_rows": ([G.gather_rows(srcs[0], special)],
+                            [G.gather_rows_reference(srcs[0], special)]),
+            "gather_rows3": (list(G.gather_rows3(srcs, special)),
+                             list(G.gather_rows3_reference(srcs, special))),
+            "gather_lane": ([G.gather_lane(lane_srcs[0], special)],
+                            [G.gather_lane_reference(lane_srcs[0],
+                                                     special)]),
         }
         torch.cuda.synchronize()
         for name, (got, plain) in results.items():
@@ -538,15 +601,24 @@ def phase_gather(device):
               f"out-of-range indices): gather_rows, gather_rows3, "
               f"gather_lane bit-identical to their plain versions and to "
               f"numpy")
-    plain_for = {"gather_rows": probe_ms["plain"],
-                 "gather_rows3": probe_ms["plain3"],
-                 "gather_lane": lane_plain_ms}
-    kernel_for = {"gather_rows": probe_ms["kernel"],
-                  "gather_rows3": probe_ms["kernel3"],
-                  "gather_lane": probe_ms["kernel_lane"]}
-    return {name: dict(launches=launches[name], ms=kernel_for[name],
-                       plain_ms=plain_for[name], max_abs_err=errs[name])
-            for name in launches}
+    variants = {"gather_rows": ("kernel", probe["plain"], "library", 1),
+                "gather_rows3": ("kernel3", probe["plain3"], None, 3),
+                "gather_lane": ("kernel_lane", lane_plain, "library_lane",
+                                1)}
+    out = {}
+    for name, (kernel, plain, library, sources) in variants.items():
+        times = probe[kernel]
+        out[name] = dict(
+            launches=launches[name], max_abs_err=errs[name],
+            device_ms=times["device_ms"], host_ms=times["host_ms"],
+            plain_ms=plain["device_ms"], plain_host_ms=plain["host_ms"],
+            library_ms=probe[library]["device_ms"] if library else None,
+            **gather_bound(idx, sources))
+        print(f"[gather] {name}: device {times['device_ms']:.4f} ms against "
+              f"bound {out[name]['bound_ms']:.5f} ms (bytes) and "
+              + (f"torch.index_select {out[name]['library_ms']:.4f} ms"
+                 if library else "no single PyTorch call"))
+    return out
 
 
 def peak_mib() -> str:
@@ -797,11 +869,16 @@ def phase_app_20m(device, ply: bytes) -> None:
     check(app["ply"] == ply, "app-20m: PLY differs from app's")
 
 
-def kernel_entry(name, source, replaces, launches, err, ms, plain_ms):
+def kernel_entry(name, source, replaces, launches, per_frame, t) -> dict:
     return {"name": name, "route": "cuda",
             "source": f"surfelmeshing_tpu_torch/csrc/{source}",
-            "replaces": replaces, "launches": launches, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms}
+            "replaces": replaces, "launches": launches,
+            "main_path_launches_per_frame": per_frame,
+            "max_abs_err": t["max_abs_err"], "ms": t["device_ms"],
+            "device_ms": t["device_ms"], "host_ms": t["host_ms"],
+            "plain_ms": t["plain_ms"], "plain_host_ms": t["plain_host_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]}
 
 
 def main() -> int:
@@ -826,12 +903,13 @@ def main() -> int:
 
 def run_phases(device, anchor) -> list:
     """Phases 3-14 and the end of 15; -> the kernels line's entries."""
-    err, ms, plain_ms = phase_kernel(device)
+    blend_times = phase_kernel(device)
     video, seq = synthetic_rgbd_video(SLICE_FRAMES, 640, 480,
                                       noise_sigma=0.002)
     slice_run = phase_slice(device, video, seq)
-    err = max(err, phase_slice_inputs(slice_run["taps"],
-                                      slice_run["radius"]))
+    blend_times["max_abs_err"] = max(
+        blend_times["max_abs_err"],
+        phase_slice_inputs(slice_run["taps"], slice_run["radius"]))
     phase_gpu_vs_cpu(device)
     phase_exact(device, video, slice_run)
     phase_staged(device, video, slice_run)
@@ -842,15 +920,16 @@ def run_phases(device, anchor) -> list:
     ply = phase_app(device)
     phase_app_20m(device, ply)
     phase_fidelity(anchor)
-    replaces = {"gather_rows": "tools/gather_probe.py:55",
-                "gather_rows3": "tools/gather_probe.py:80",
-                "gather_lane": "tools/gather_probe.py:103"}
+    replaces = {"gather_rows": "tools/gather_probe.py:66",
+                "gather_rows3": "tools/gather_probe.py:91",
+                "gather_lane": "tools/gather_probe.py:113"}
     kernels = [kernel_entry("blend_core", "blend.cu",
-                            "surfelmeshing_tpu/ops/fusion.py:1715",
-                            slice_run["launches"], err, ms, plain_ms)]
-    kernels += [kernel_entry(k, "gather.cu", replaces[k], g["launches"],
-                             g["max_abs_err"], g["ms"], g["plain_ms"])
-                for k, g in gathers.items()]
+                            "surfelmeshing_tpu/ops/fusion.py:1726",
+                            slice_run["launches"],
+                            slice_run["launches"] / slice_run["fused"],
+                            blend_times)]
+    kernels += [kernel_entry(k, "gather.cu", replaces[k], g["launches"], 0,
+                             g) for k, g in gathers.items()]
     return kernels
 
 

@@ -5,9 +5,10 @@ PyTorch tensor code; the measurement-blending stencil, the one Pallas kernel
 of the JAX package on that path, is a hand-written CUDA kernel
 (csrc/blend.cu) built for sm_90a at first use.
 
-The JAX package stays the reference: the port imports only its jax-free
-host modules (config, io.tum / io.synthetic / io.mesh_io, utils.se3 /
-camera / spline / timing) and never jax itself.
+The JAX package stays the reference and the port imports nothing of it,
+nor jax: the host layer it shares with the JAX package (config, io,
+utils, eval.mesh_accuracy, meshing and the native mesher) is the port's
+own copy, under the same module names.
 """
 
 import torch

@@ -3,8 +3,8 @@
 Counterpart of surfelmeshing_tpu/app/evaluate.py: reconstructs a
 TUM/ICL-NUIM-format sequence with the port's pipeline on one torch device
 and evaluates the surfel cloud against a ground-truth model (OBJ) or point
-cloud (PLY) with the JAX package's host-side metric
-(eval/mesh_accuracy.py):
+cloud (PLY) with the host-side metric of eval/mesh_accuracy.py (the
+port's copy of the JAX package's):
 
     python -m surfelmeshing_tpu_torch.app.evaluate <dataset_dir> \
         <trajectory> --ground_truth model.obj [--device cuda] \
@@ -22,14 +22,12 @@ import sys
 
 import numpy as np
 
-from surfelmeshing_tpu.config import SurfelMeshingConfig
-from surfelmeshing_tpu.eval.mesh_accuracy import (AccuracyResult,
-                                                  evaluate_accuracy,
-                                                  load_obj_vertices_triangles,
-                                                  sample_mesh_surface)
-from surfelmeshing_tpu.io.mesh_io import read_ply
-from surfelmeshing_tpu.io.tum import read_tum_rgbd_dataset
-
+from ..config import SurfelMeshingConfig
+from ..eval.mesh_accuracy import (AccuracyResult, evaluate_accuracy,
+                                  load_obj_vertices_triangles,
+                                  sample_mesh_surface)
+from ..io.mesh_io import read_ply
+from ..io.tum import read_tum_rgbd_dataset
 from ..pipeline import ReconstructionPipeline
 
 logger = logging.getLogger("surfelmeshing_tpu_torch.eval")

@@ -7,7 +7,7 @@ Usage:
         <trajectory_filename> [--device cuda|cpu] [flags...]
 
 Counterpart of surfelmeshing_tpu/app/main.py with the same flags
-(surfelmeshing_tpu.config): dataset playback with pose interpolation, depth
+(config.py): dataset playback with pose interpolation, depth
 preprocessing and surfel fusion on the device, asynchronous (or
 synchronous) meshing fed by delta snapshots, the FPS cap, keyframe
 recording, checkpoints, terminal controls, and OBJ / PLY export.  The
@@ -36,16 +36,15 @@ import time
 
 import torch
 
-from surfelmeshing_tpu.config import SurfelMeshingConfig, config_from_args
-from surfelmeshing_tpu.io.tum import read_tum_rgbd_dataset
-from surfelmeshing_tpu.utils.se3 import SE3
-from surfelmeshing_tpu.utils.spline import write_keyframes
-
 from .. import resolve_device
+from ..config import SurfelMeshingConfig, config_from_args
 from ..io.checkpoint import load_checkpoint, save_checkpoint
+from ..io.tum import read_tum_rgbd_dataset
 from ..meshing import MeshingDriver
 from ..ops.fusion import regularize_only
 from ..pipeline import ReconstructionPipeline
+from ..utils.se3 import SE3
+from ..utils.spline import write_keyframes
 
 logger = logging.getLogger("surfelmeshing_tpu_torch")
 

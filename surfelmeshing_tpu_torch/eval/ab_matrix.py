@@ -25,10 +25,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from surfelmeshing_tpu.io.synthetic import (SCENES, TRAJECTORIES,
-                                            SyntheticRGBDSequence)
-
 from .. import resolve_device
+from ..io.synthetic import SCENES, TRAJECTORIES, SyntheticRGBDSequence
 from ..ops import preprocess as pp
 from ..ops.fusion import (FusionParams, SurfelState, create_surfel_state,
                           integrate_frame, meshing_snapshot)

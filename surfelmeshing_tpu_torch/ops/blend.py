@@ -22,9 +22,13 @@ import torch.nn.functional as F
 
 from . import cuda_build
 
-# Largest ring radius whose tile + halo fits the card's shared memory
-# (the kernel stores 25 bytes per pixel of a (32 + 2(r-1))^2 region).
-MAX_RADIUS = 33
+# Largest ring radius the kernel takes (csrc/blend.cu kMaxRadius).  A
+# block's region is 64 columns wide, one 64-bit mask a row, and must keep
+# at least two core columns inside a halo of radius-1 on each side.  At 16
+# bytes a pixel (depth and two deltas, f32; two u16 pixel lists) and 96
+# bytes of masks a row, its largest region (94 x 64) takes 105,296 bytes
+# of shared memory, well inside the 227 KB a block may use.
+MAX_RADIUS = 32
 
 
 def _shifted(img: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
@@ -116,13 +120,24 @@ def blend_core_reference(depth_f: torch.Tensor, supported: torch.Tensor,
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
-    """The kernel library, built on first use and loaded once."""
+    """The kernel library, built on first use and loaded once; its shared
+    memory limit is raised here, once a process, so that no launch calls
+    cudaFuncSetAttribute (a launch can then be captured in a CUDA graph)."""
     lib = ctypes.CDLL(str(cuda_build.build("blend")))
     lib.blend_core_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_void_p]
     lib.blend_core_launch.restype = ctypes.c_int
+    lib.blend_configure.restype = ctypes.c_int
+    lib.blend_max_radius.restype = ctypes.c_int
+    if lib.blend_max_radius() != MAX_RADIUS:
+        raise RuntimeError("csrc/blend.cu and ops/blend.py disagree on the "
+                           "largest radius")
+    err = lib.blend_configure()
+    if err != 0:
+        raise RuntimeError(f"blend_core: cudaFuncSetAttribute failed: CUDA "
+                           f"error {err}")
     return lib
 
 

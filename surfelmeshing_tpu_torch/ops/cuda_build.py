@@ -1,10 +1,14 @@
-"""Build the port's CUDA sources into plain-C shared libraries.
+"""Build the port's native sources into shared libraries.
 
 Each csrc/<name>.cu is compiled with nvcc for sm_90a at first use into
 build/kernels/ at the repository root and loaded with ctypes by its
-wrapper module.  The file name carries a hash of the source and the build
-flags, so a stale library is never loaded.  Nothing here runs at import
-time: the CPU tests import every module on machines without nvcc.
+wrapper module; the native meshing engine (native/*.cc) is compiled the
+same way with g++ into build/native/ (meshing/engine.py).  The file name
+carries a hash of the sources and the build flags, so a stale library is
+never loaded, and the library is renamed into place atomically, so
+concurrent builds (test workers, chip_smoke's parallel builds) agree.
+Nothing here runs at import time: the CPU tests import every module on
+machines without nvcc.
 """
 
 from __future__ import annotations
@@ -15,35 +19,46 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build"
+BUILD_DIR = BUILD_ROOT / "kernels"
 # No --use_fast_math: the kernels' divisions must be IEEE divisions.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 
-def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless a library built from the same source
-    and flags is already there; returns the library's path."""
-    source_path = CSRC / f"{name}.cu"
-    source = source_path.read_bytes()
-    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode())
-    path = BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
+def cached_build(name: str, compiler: str, flags: Sequence[str],
+                 sources: Sequence[Path], headers: Sequence[Path] = (),
+                 build_dir: Path = BUILD_DIR) -> Path:
+    """Compile `sources` with `compiler flags -o <lib>` unless a library
+    built from the same sources, headers and flags is already in
+    `build_dir`; returns the library's path."""
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for p in (*sources, *headers):
+        digest.update(Path(p).read_bytes())
+    path = build_dir / f"{name}_{digest.hexdigest()[:16]}.so"
     if path.exists():
         return path
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    build_dir.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
     os.close(fd)
     try:
-        subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(source_path)],
+        subprocess.run([compiler, *flags, "-o", tmp, *map(str, sources)],
                        check=True, capture_output=True, text=True)
         os.replace(tmp, path)      # atomic: concurrent builds agree
     except subprocess.CalledProcessError as e:
-        raise RuntimeError(f"nvcc failed building {source_path}:\n"
+        raise RuntimeError(f"{compiler} failed building "
+                           f"{', '.join(map(str, sources))}:\n"
                            f"{e.stderr}") from e
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return path
+
+
+def build(name: str) -> Path:
+    """Compile csrc/<name>.cu with nvcc (cached as above)."""
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    return cached_build(name, nvcc, NVCC_FLAGS, [CSRC / f"{name}.cu"])

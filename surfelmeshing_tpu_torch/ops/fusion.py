@@ -31,9 +31,8 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from surfelmeshing_tpu.utils.stage_trace import COLUMNS
-
 from .. import resolve_device
+from ..utils.timing import COLUMNS
 from .blend import blend_core
 from .preprocess import sqrt_f32, to_i32_trunc
 

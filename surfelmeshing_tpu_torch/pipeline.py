@@ -37,18 +37,17 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from surfelmeshing_tpu.config import SurfelMeshingConfig
-from surfelmeshing_tpu.io.mesh_io import write_ply
-from surfelmeshing_tpu.io.tum import RGBDVideo
-from surfelmeshing_tpu.utils.camera import PinholeCamera
-from surfelmeshing_tpu.utils.timing import Timing, format_frame_timings_line
-
 from . import resolve_device
+from .config import SurfelMeshingConfig
+from .io.mesh_io import write_ply
+from .io.tum import RGBDVideo
 from .ops import preprocess as pp
 from .ops.fusion import (FusionParams, StageTimer, SurfelState,
                          create_surfel_state, export_vertices,
                          integrate_frame, meshing_snapshot,
                          meshing_snapshot_delta, normals)
+from .utils.camera import PinholeCamera
+from .utils.timing import Timing, format_frame_timings_line
 
 
 @dataclasses.dataclass

@@ -12,55 +12,63 @@ native engine meshes both snapshots.  The metric is the mean distance from
 points sampled on the port's mesh to the oracle's mesh, beside the
 direct surfel-position deltas.  Prints one JSON line with the JAX tool's
 keys plus "device".
+
+The oracle's one import of the JAX package (the pack column map) is given
+stand-ins for its whole dotted chain, backed by the port's fusion module
+(make_oracle): no module of the JAX package is loaded.
 """
 
 from __future__ import annotations
 
 import argparse
+import builtins
 import importlib.util
 import json
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
 
-from surfelmeshing_tpu.eval.mesh_accuracy import (point_to_mesh_distance,
-                                                  sample_mesh_surface)
-from surfelmeshing_tpu.io.synthetic import SyntheticRGBDSequence
-from surfelmeshing_tpu.meshing.engine import MeshingEngine
-
 from .. import resolve_device
 from ..eval.ab_matrix import preprocess_synthetic_frame
+from ..eval.mesh_accuracy import point_to_mesh_distance, sample_mesh_surface
+from ..io.synthetic import SyntheticRGBDSequence
+from ..meshing.engine import MeshingEngine
 from ..ops import fusion as F
 
 ORACLE_PATH = Path(__file__).resolve().parents[2] / "tests" / \
     "golden_fusion.py"
 
 
+def _oracle_import(name, globals=None, locals=None, fromlist=(), level=0):
+    """The oracle's `__import__`: its one import of the JAX package,
+    `from surfelmeshing_tpu.ops import fusion` (for the pack column map),
+    gets a stand-in for the dotted chain whose `fusion` is the port's
+    fusion module (the same column map); every other import is the
+    ordinary one."""
+    if fromlist is not None and tuple(fromlist) == ("fusion",):
+        return types.SimpleNamespace(fusion=F)
+    return builtins.__import__(name, globals, locals, fromlist, level)
+
+
 def make_oracle(state: F.SurfelState):
     """The golden oracle (tests/golden_fusion.py's Oracle) holding a host
-    copy of `state`.  The oracle takes its pack column map from the JAX
-    package's fusion module; the port's has the same map and stands in for
-    it while the oracle is built, unless that module is loaded already, so
-    the oracle runs without JAX."""
+    copy of `state`.  The oracle module runs with its own `__import__`
+    (_oracle_import), so it reaches the column map through a stand-in for
+    `surfelmeshing_tpu.ops`: no `surfelmeshing_tpu` module or package is
+    imported or enters sys.modules, and the oracle runs without JAX."""
     spec = importlib.util.spec_from_file_location("golden_fusion",
                                                   ORACLE_PATH)
     module = importlib.util.module_from_spec(spec)
+    module.__builtins__ = dict(vars(builtins), __import__=_oracle_import)
     spec.loader.exec_module(module)
     host = F.state_to_numpy(state)
-    name = "surfelmeshing_tpu.ops.fusion"
-    stand_in = name not in sys.modules
-    if stand_in:
-        sys.modules[name] = F
-    try:
-        # The oracle keeps neighbors surfel-major (N, 4).
-        return module.Oracle(host["pack"], host["neighbors"].T,
-                             int(host["surfel_count"]),
-                             nbr_dist=host["nbr_dist"].T)
-    finally:
-        if stand_in:
-            del sys.modules[name]
+    # The oracle keeps neighbors surfel-major (N, 4).
+    return module.Oracle(host["pack"], host["neighbors"].T,
+                         int(host["surfel_count"]),
+                         nbr_dist=host["nbr_dist"].T)
 
 
 def build_mesh(positions, radii_sq, normals, stamps, count):

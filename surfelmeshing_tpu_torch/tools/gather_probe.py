@@ -1,5 +1,5 @@
 """Gather-rate probe: the hand-written CUDA row gathers against plain
-PyTorch indexing on the card.
+PyTorch indexing and torch.index_select on the card.
 
     python -m surfelmeshing_tpu_torch.tools.gather_probe [--device cuda]
         [variant ...]
@@ -13,34 +13,42 @@ indices.  Variants, with the JAX probe's names they stand for:
   kernel       pallas       ops.gather.gather_rows (csrc/gather.cu)
   kernel3      pallas3      ops.gather.gather_rows3, one launch for three
   kernel_lane  pallas_lane  ops.gather.gather_lane, (8, HW) source layout
+  library      -            torch.index_select(src, 0, idx), the one
+                            PyTorch call for gather_rows (a yardstick: the
+                            port never calls it)
+  library_lane -            torch.index_select(src_t, 1, idx) on the
+                            (8, HW) layout, the one call for gather_lane
 
 Inputs come from numpy with the fixed seed SEED: a normal source, src*2,
 src*3, and indices uniform in [0, HW).  Each variant first checks its
-output bit for bit against the plain gather, then times REPEATS
-back-to-back launches with CUDA events after a warm-up and prints
-ms/gather-step and M idx/s (three index streams for the *3 variants).
-A variant that fails or disagrees ends the run with a non-zero exit; the
-kernel variants raise on a device other than CUDA.
+output bit for bit against the plain gather, then is timed after a
+warm-up (tools/kernel_timing.py): on the card its device time (REPEATS
+calls captured in a CUDA graph and replayed between CUDA events) and its
+host-inclusive time (REPEATS back-to-back calls between CUDA events);
+elsewhere the host clock.  It prints ms/gather-step and M idx/s (three
+index streams for the *3 variants).  A variant that fails or disagrees
+ends the run with a non-zero exit; the kernel variants raise on a device
+other than CUDA.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
-import time
 
 import numpy as np
 import torch
 
 from .. import resolve_device
 from ..ops import gather as G
+from . import kernel_timing
 
 HW = 307_200          # 640*480
 N = 500_736           # padded surfel count of the JAX probe
 COLS = G.COLS
-REPEATS = 30
-WARMUP = 3
-VARIANTS = ("plain", "kernel", "plain3", "kernel3", "kernel_lane")
+REPEATS = kernel_timing.REPEATS
+VARIANTS = ("plain", "kernel", "plain3", "kernel3", "kernel_lane", "library",
+            "library_lane")
 SEED = 0
 
 
@@ -89,61 +97,49 @@ def variant_fns(src, src2, src3, idx):
         "kernel": lambda: [G.gather_rows(src, idx)],
         "kernel3": lambda: list(G.gather_rows3((src, src2, src3), idx)),
         "kernel_lane": lambda: [G.gather_lane(lane_src, idx)],
+        "library": lambda: [torch.index_select(src, 0, idx)],
+        "library_lane": lambda: [
+            torch.index_select(lane_src.t(), 1, idx).t()],
     }
 
 
-def _sync(device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
-def time_step(step, device, repeats: int = REPEATS) -> float:
-    """ms per call of `step` over `repeats` back-to-back calls: CUDA events
-    on the card, the host clock elsewhere."""
-    for _ in range(WARMUP):
-        step()
-    _sync(device)
-    if device.type == "cuda":
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(repeats):
-            step()
-        end.record()
-        torch.cuda.synchronize(device)
-        return start.elapsed_time(end) / repeats
-    t0 = time.perf_counter()
-    for _ in range(repeats):
-        step()
-    return 1000.0 * (time.perf_counter() - t0) / repeats
-
-
-def run_variant(variant: str, inputs, device) -> float:
+def run_variant(variant: str, inputs, device) -> dict:
     """Check one variant bit for bit, time it and print its line; returns
-    ms per gather-step."""
+    {"device_ms", "host_ms"} per gather-step (device_ms None off the
+    card)."""
     src, src2, src3, idx = inputs
     if variant.startswith("kernel") and device.type != "cuda":
         raise ValueError(f"{variant}: the kernels run on a CUDA device, "
                          f"not {device}")
     step = variant_fns(*inputs)[variant]
     got = step()
-    _sync(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
     want = [G.gather_rows_reference(s, idx) for s in (src, src2, src3)]
     for g, w in zip(got, want):
         if not torch.equal(g.contiguous().view(torch.int32),
                            w.view(torch.int32)):
             raise AssertionError(f"{variant}: gather mismatch")
-    ms = time_step(step, device)
+    times = {"device_ms": None,
+             "host_ms": kernel_timing.host_ms(step, device, REPEATS)}
     streams = len(got)
-    clock = "CUDA events" if device.type == "cuda" else "host clock"
-    print(f"{variant:11s}: {ms:8.4f} ms/gather-step "
-          f"({idx.shape[0] * streams / ms / 1e3:.0f}M idx/s, {clock}, "
-          f"bit-identical to plain)")
-    return ms
+    rate = idx.shape[0] * streams / 1e3
+    if device.type == "cuda":
+        times["device_ms"] = kernel_timing.device_ms(step, REPEATS)
+        print(f"{variant:12s}: {times['device_ms']:8.4f} ms/gather-step "
+              f"device ({rate / times['device_ms']:.0f}M idx/s, CUDA graph "
+              f"replay), {times['host_ms']:8.4f} host-inclusive (CUDA "
+              f"events), bit-identical to plain")
+    else:
+        print(f"{variant:12s}: {times['host_ms']:8.4f} ms/gather-step "
+              f"({rate / times['host_ms']:.0f}M idx/s, host clock, "
+              f"bit-identical to plain)")
+    return times
 
 
 def run_probe(device, variants=VARIANTS) -> dict:
-    """Every variant on one set of inputs; -> {variant: ms/gather-step}."""
+    """Every variant on one set of inputs; -> {variant: run_variant's
+    times}."""
     inputs = make_inputs(device)
     return {v: run_variant(v, inputs, device) for v in variants}
 

@@ -97,7 +97,8 @@ def test_probe_runs_plain_variants_and_refuses_kernels_off_card(capsys):
     cpu = torch.device("cpu")
     inputs = gather_probe.make_inputs(cpu, hw=HW, n=N)
     for variant in ("plain", "plain3"):
-        assert gather_probe.run_variant(variant, inputs, cpu) > 0
+        times = gather_probe.run_variant(variant, inputs, cpu)
+        assert times["host_ms"] > 0 and times["device_ms"] is None
     assert "bit-identical" in capsys.readouterr().out
     with pytest.raises(ValueError):
         gather_probe.run_variant("kernel", inputs, cpu)
