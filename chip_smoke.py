@@ -5,15 +5,22 @@
 Phases, each printing one or more lines:
   1. device: requires CUDA (exits non-zero otherwise), prints the card and
      its power limit, turns TF32 off;
-  2. build: compiles csrc/blend.cu and csrc/gather.cu (one nvcc each) and
-     the native mesher (g++), all started together;
-  3. kernel: the blending kernel bit for bit against its plain PyTorch
-     version on seeded maps at 640x480 with radii 1, 2, 3, 6, 12 and
-     MAX_RADIUS and at radius 12 on shapes that are not multiples of its
-     tile (24x32, 481x641, 240x320, 120x160); at 640x480 radius 12 its
-     device time (a CUDA graph of repeated launches replayed between CUDA
-     events), its host-inclusive time (back-to-back calls between CUDA
-     events) and the plain version's, beside the bound;
+  2. build: compiles csrc/blend.cu, blend_wide.cu, gather.cu and
+     l2_read.cu (one nvcc each) and the native mesher (g++), all started
+     together;
+  3. kernel: the one-launch blending kernel bit for bit against its plain
+     PyTorch version on seeded maps at 640x480 with radii 1, 2, 3, 6, 12
+     and MAX_RADIUS and at radius 12 on shapes that are not multiples of
+     its tile (24x32, 481x641, 240x320, 120x160); the wide path (radius >
+     MAX_RADIUS) bit for bit at 640x480 with radii 33, 48 and 64, at
+     radius 257 on a 24x32 map with no border (the reference's sentinel
+     collision: every eligible pixel +0.5) and at radius 300 on a 64x640
+     map whose rings pass 255; launch counts show which path each radius
+     took; at 640x480 radius 12 (one-launch) and 48 (wide) the device
+     time (a CUDA graph of repeated launches replayed between CUDA events),
+     the host-inclusive time (back-to-back calls between CUDA events) and
+     the plain version's, beside the bound, and the kernels a call
+     enqueued as the launchers count them;
   4. slice: ReconstructionPipeline at 640x480 with 500k surfel capacity and
      default settings over the 24-frame synthetic video, every frame with a
      full outlier window fused; launch counts prove the kernel ran;
@@ -21,7 +28,9 @@ Phases, each printing one or more lines:
      on the last warm-up frame, the map holding surfels by then), bit for
      bit, and its device time on them;
   6. the same port slice on the GPU and on the CPU (plain versions) at
-     160x120 over 6 fused frames, held to the CPU tests' tolerance;
+     160x120 over 6 fused frames, held to the CPU tests' tolerance; then
+     both again with --measurement_blending_radius 48, bit for bit, every
+     GPU frame through the wide path (its kernel launches counted);
   7. exact: the slice with each reference-parity fusion mode
      (symmetric_regularization=False, exact_conflict_arbitration=True,
      fast_neighbor_update=False) and with all three: surfels, no overflow,
@@ -39,10 +48,13 @@ Phases, each printing one or more lines:
  10. gather: the gather probe (tools/gather_probe.py of the port) at its
      sizes, every variant (kernels, plain versions, torch.index_select)
      timed on the device and host-inclusive as in phase 3, launch counts
-     proving the three kernels ran; then each kernel bit for bit against
-     its plain version on sources with NaN-pattern, -0.0 and denormal rows
-     and out-of-range indices, at the probe's sizes and at N = 1 and
-     N = 257;
+     proving the three kernels ran, gather_lane no slower than
+     torch.index_select; the L2 read rate (csrc/l2_read.cu) and from it
+     gather_lane's L2-level bounds: its two passes', and the sector bound
+     of its (8, HW) layout read directly; then each kernel bit for bit
+     against its plain version on sources with NaN-pattern, -0.0 and
+     denormal rows and out-of-range indices, at the probe's sizes and at
+     N = 1, 257 and 4099 (HW 97 and the probe's);
  11. e2e: preprocessing + fusion + asynchronous meshing at 640x480 / 500k
      over the 40-frame synthetic video (tools/bench_e2e.py's run_config):
      8 warm-up frames with a full and a delta snapshot drained, then every
@@ -101,7 +113,7 @@ from surfelmeshing_tpu_torch.tools import (fidelity_anchor, gather_probe,
 
 SCALE = 5000.0
 WARMUP_FRAMES = 4
-KERNEL_SOURCES = ("blend", "gather")
+KERNEL_SOURCES = ("blend", "blend_wide", "gather", "l2_read")
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM3 bytes/s and
 # f32 operations/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -146,20 +158,36 @@ def random_maps(h, w, seed, device):
             for m in (depth_f, supported, valid, avg)]
 
 
+def blend_counts() -> tuple:
+    return blend.blend_core.launches, blend.blend_core.wide_launches
+
+
+def zero_blend_counts() -> None:
+    core = blend.blend_core
+    core.launches = core.wide_launches = core.wide_kernel_launches = 0
+
+
 def compare_kernel(maps, radius, label) -> float:
-    """Kernel vs plain version on the same CUDA tensors, bit for bit;
-    returns the max absolute difference (0 when they agree)."""
+    """Kernel vs plain version on the same CUDA tensors, bit for bit, and
+    the launch counts of the path the radius must take; returns the max
+    absolute difference (0 when they agree)."""
+    before = blend_counts()
     got = blend.blend_core(*maps, radius, SCALE)
     torch.cuda.synchronize()
+    one, wide = (a - b for a, b in zip(blend_counts(), before))
     want = blend.blend_core_reference(*maps, radius, SCALE)
     exact = bits_equal(got, want)
     err = max_abs_err(got, want)
     changed = int((want != maps[0]).sum())
+    path = "one-launch" if radius <= blend.MAX_RADIUS else "wide"
     print(f"[kernel] {label} {tuple(maps[0].shape)} radius {radius}: "
           f"bit-identical to the plain version {exact} (max |diff| {err}; "
-          f"{changed} pixels blended)")
+          f"{changed} pixels blended); launches one-launch {one}, wide "
+          f"path {wide}")
     check(exact, f"blending kernel differs from its plain version on "
           f"{label} at radius {radius}")
+    check((one, wide) == ((1, 0) if path == "one-launch" else (0, 1)),
+          f"radius {radius} did not take the {path} path once")
     return err
 
 
@@ -172,6 +200,31 @@ def bound(nbytes: float, ops: float) -> dict:
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
+def sentinel_maps(h, w, device):
+    """Every pixel valid and supported: no border, so every eligible pixel
+    stays at the reference's 'unknown' ring value 255 until iteration 256
+    reads it as ring 255."""
+    depth_f = torch.full((h, w), 5000.0)
+    ones = torch.ones((h, w))
+    avg = torch.full((h, w), np.float32(5000.0 / SCALE + 0.01))
+    return [m.to(device) for m in (depth_f, ones, ones.clone(), avg)]
+
+
+def long_ring_maps(h, w, seed, device):
+    """Invalid left columns and an unsupported run in one row: rings grow
+    along the rows past ring 255, and targets grow ndist rings."""
+    rng = np.random.default_rng(seed)
+    depth_f = (10000 + rng.integers(0, 300, (h, w))).astype(np.float32)
+    depth_f[:, :3] = 0
+    supported = np.ones((h, w), np.float32)
+    supported[h // 2, w // 2:] = 0
+    valid = (depth_f > 0).astype(np.float32)
+    avg = (depth_f / SCALE +
+           0.01 * rng.standard_normal((h, w))).astype(np.float32)
+    return [torch.from_numpy(m).to(device)
+            for m in (depth_f, supported, valid, avg)]
+
+
 def blend_bound(h: int, w: int) -> dict:
     """Four f32 maps read and one written once.  Every pixel changes at
     most once (dist and ndist leave 255 / 0 once, on disjoint pixel sets),
@@ -182,34 +235,67 @@ def blend_bound(h: int, w: int) -> dict:
     return bound(5 * 4 * h * w, 18 * h * w)
 
 
-def phase_kernel(device) -> dict:
-    err = 0.0
+def time_blend(maps, radius, device, repeats, label) -> dict:
+    """Device, host-inclusive and plain times of blend_core at `radius` on
+    `maps`, beside the bound, and the kernels each call enqueued, counted
+    over the timed calls; prints them."""
+    zero_blend_counts()
+    times = dict(
+        device_ms=kernel_timing.device_ms(
+            lambda: blend.blend_core(*maps, radius, SCALE), repeats),
+        host_ms=kernel_timing.host_ms(
+            lambda: blend.blend_core(*maps, radius, SCALE), device, repeats),
+        plain_ms=kernel_timing.device_ms(
+            lambda: blend.blend_core_reference(*maps, radius, SCALE), 3),
+        plain_host_ms=kernel_timing.host_ms(
+            lambda: blend.blend_core_reference(*maps, radius, SCALE), device,
+            3),
+        library_ms=None, **blend_bound(*maps[0].shape))
+    core = blend.blend_core
+    calls = core.launches + core.wide_launches
+    times["kernel_launches_per_call"] = \
+        (core.launches + core.wide_kernel_launches) / calls
+    h, w = maps[0].shape
+    print(f"[kernel] {w}x{h} radius {radius}, {label}, seeded maps: "
+          f"{times['kernel_launches_per_call']:g} kernels a call (launcher "
+          f"counts over {calls} calls); device "
+          f"{times['device_ms']:.4f} ms (CUDA graph of {repeats} calls), "
+          f"host-inclusive {times['host_ms']:.4f} ms; plain PyTorch device "
+          f"{times['plain_ms']:.4f} ms, host-inclusive "
+          f"{times['plain_host_ms']:.4f} ms; bound {times['bound_ms']:.5f} "
+          f"ms ({times['bound_by']}), {100.0 * times['bound_ms'] / times['device_ms']:.1f}% "
+          f"of it reached; no single PyTorch call computes it")
+    return times
+
+
+def phase_kernel(device):
+    """-> the kernels-line numbers of the one-launch kernel and of the
+    wide path."""
+    err = wide_err = 0.0
     for radius in (1, 2, 3, 6, 12, blend.MAX_RADIUS):
         err = max(err, compare_kernel(random_maps(480, 640, radius, device),
                                       radius, "seeded maps"))
     for shape in ((24, 32), (481, 641), (240, 320), (120, 160)):
         err = max(err, compare_kernel(random_maps(*shape, 1, device), 12,
                                       "seeded maps"))
+    for radius in (33, 48, 64):
+        wide_err = max(wide_err, compare_kernel(
+            random_maps(480, 640, radius, device), radius, "seeded maps"))
+    maps = sentinel_maps(24, 32, device)
+    wide_err = max(wide_err, compare_kernel(maps, 257, "no border (sentinel)"),
+                   compare_kernel(long_ring_maps(64, 640, 1, device), 300,
+                                  "rings past 255"))
+    moved = torch.zeros((24, 32), device=device)
+    moved[1:-1, 1:-1] = 0.5
+    check(torch.equal(blend.blend_core(*maps, 257, SCALE) - maps[0], moved),
+          "radius 257: the sentinel collision did not move every eligible "
+          "pixel by +0.5")
+    print("[kernel] radius 257 on the map with no border: every eligible "
+          "pixel moved by +0.5 (the reference's ring-255 sentinel)")
     maps = random_maps(480, 640, 2, device)
-    times = dict(
-        device_ms=kernel_timing.device_ms(
-            lambda: blend.blend_core(*maps, 12, SCALE), 50),
-        host_ms=kernel_timing.host_ms(
-            lambda: blend.blend_core(*maps, 12, SCALE), device, 50),
-        plain_ms=kernel_timing.device_ms(
-            lambda: blend.blend_core_reference(*maps, 12, SCALE), 5),
-        plain_host_ms=kernel_timing.host_ms(
-            lambda: blend.blend_core_reference(*maps, 12, SCALE), device,
-            5),
-        library_ms=None, **blend_bound(480, 640))
-    print(f"[kernel] 640x480 radius 12, seeded maps: device "
-          f"{times['device_ms']:.4f} ms (CUDA graph of 50 launches), "
-          f"host-inclusive {times['host_ms']:.4f} ms; plain PyTorch device "
-          f"{times['plain_ms']:.4f} ms, host-inclusive "
-          f"{times['plain_host_ms']:.4f} ms; bound {times['bound_ms']:.5f} "
-          f"ms ({times['bound_by']}), {100.0 * times['bound_ms'] / times['device_ms']:.1f}% "
-          f"of it reached; no single PyTorch call computes it")
-    return dict(times, max_abs_err=err)
+    times = time_blend(maps, 12, device, 50, "one-launch kernel")
+    wide = time_blend(maps, 48, device, 30, "wide path")
+    return dict(times, max_abs_err=err), dict(wide, max_abs_err=wide_err)
 
 
 def live_pack(pipe) -> np.ndarray:
@@ -260,7 +346,7 @@ def run_slice(device, video, cfg, modes=None, taps=None) -> dict:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     frame_events = []
-    blend.blend_core.launches = 0
+    zero_blend_counts()
     fused = 0
     for i in range(video.frame_count):
         if i == fused_frames[WARMUP_FRAMES]:
@@ -284,6 +370,8 @@ def run_slice(device, video, cfg, modes=None, taps=None) -> dict:
             wall = time.perf_counter() - t0
     timed = len(fused_frames) - WARMUP_FRAMES
     check(fused == len(fused_frames), "not every full-window frame fused")
+    check(blend.blend_core.wide_launches == 0, "the default radius took the "
+          "wide blending path")
     return dict(pipe=pipe, fused=fused, launches=blend.blend_core.launches,
                 timed=timed, ms_frame=start.elapsed_time(end) / timed,
                 wall_ms=1000.0 * wall / timed,
@@ -341,10 +429,12 @@ def mean_nearest_distance(a: np.ndarray, b: np.ndarray, device) -> float:
                             for c in a.split(4096)]).mean())
 
 
-def gpu_and_cpu_runs(device, modes=None):
+def gpu_and_cpu_runs(device, modes=None, **config):
     """The port at 160x120 over 6 fused frames on the card and on the CPU
-    (plain versions), fusion modes `modes`; -> the two live states."""
-    cfg = SurfelMeshingConfig(max_surfel_count=65_536, restrict_fps_to=0)
+    (plain versions), fusion modes `modes`, config fields `config`; -> the
+    two live states."""
+    cfg = SurfelMeshingConfig(max_surfel_count=65_536, restrict_fps_to=0,
+                              **config)
     half = cfg.outlier_filtering_frame_count // 2
     states = []
     for dev in (device, torch.device("cpu")):
@@ -375,6 +465,23 @@ def phase_gpu_vs_cpu(device):
           f"CPU {len(cpu)}; bit-identical {exact}; within rtol 3e-5 "
           f"atol 3e-6 {close}; mean nearest-surfel distance {dist:.3e} m")
     check(close or (count_ok and dist < 5e-4), "GPU and CPU slices disagree")
+    zero_blend_counts()
+    gpu_state, cpu_state = gpu_and_cpu_runs(device,
+                                            measurement_blending_radius=48)
+    one, wide = blend_counts()
+    kernels = blend.blend_core.wide_kernel_launches
+    exact = states_equal(gpu_state, cpu_state)
+    print(f"[gpu-vs-cpu] 160x120, 6 fused frames, "
+          f"--measurement_blending_radius 48: surfels GPU "
+          f"{len(gpu_state['pack'])} CPU {len(cpu_state['pack'])}; "
+          f"bit-identical {exact}; GPU blending calls: wide path {wide} "
+          f"({kernels} kernel launches), one-launch kernel {one}")
+    check(exact, "radius 48: GPU and CPU states differ")
+    check((one, wide) == (0, 6), f"radius 48: {wide} wide-path and {one} "
+          f"one-launch blending calls for 6 fused frames")
+    check(kernels == wide * (48 - 1), f"radius 48: {kernels} wide-path "
+          f"kernels for {wide} calls, not an init and 46 ring kernels each")
+    return dict(calls=wide, kernels=kernels)
 
 
 # The reference-parity fusion modes: each switch alone, then all three.
@@ -518,7 +625,9 @@ def phase_build():
         paths = list(pool.map(lambda build: build(), builds))
     build_s = time.perf_counter() - t0
     blend.load_library()
+    blend.load_wide_library()
     G.load_library()
+    kernel_timing.load_l2_read_library()
     engine.MeshingEngine()
     built = ", ".join(f"csrc/{name}.cu -> {path.name}"
                       for name, path in zip(KERNEL_SOURCES, paths))
@@ -574,7 +683,9 @@ def phase_gather(device):
 
     errs = {fn.__name__: 0.0 for fn in GATHERS}
     for label, hw, n in (("probe sizes", gather_probe.HW, gather_probe.N),
-                         ("N=1", 97, 1), ("N=257", 97, 257)):
+                         ("N=1", 97, 1), ("N=257", 97, 257),
+                         ("N=4099", 97, 4099),
+                         ("N=4099", gather_probe.HW, 4099)):
         srcs, idx_np = gather_probe.special_inputs(hw, n, 7)
         want = [s[np.clip(idx_np, 0, hw - 1)] for s in srcs]
         srcs = [torch.from_numpy(s).to(device) for s in srcs]
@@ -601,6 +712,27 @@ def phase_gather(device):
               f"out-of-range indices): gather_rows, gather_rows3, "
               f"gather_lane bit-identical to their plain versions and to "
               f"numpy")
+    lane, library_lane = (probe[v]["device_ms"]
+                          for v in ("kernel_lane", "library_lane"))
+    check(lane <= library_lane, f"gather_lane {lane:.4f} ms is slower than "
+          f"torch.index_select(src_t, 1, idx) {library_lane:.4f} ms")
+    l2_rate = kernel_timing.l2_read_bytes_per_s(device)
+    n, hw = gather_probe.N, gather_probe.HW
+    # The (8, HW) layout read directly: 8 sectors of 32 B for each index.
+    direct_sectors = n * G.COLS * 32
+    direct_ms = 1000.0 * direct_sectors / l2_rate
+    # The committed two passes: the transpose reads and writes HW rows of
+    # 32 B; the gather reads each index (4 B) and its row (one sector) and
+    # writes 32 B of output.
+    design_bytes = 2 * hw * 32 + n * (4 + 32 + 32)
+    design_ms = 1000.0 * design_bytes / l2_rate
+    print(f"[gather] L2 read rate {l2_rate / 1e12:.3f} TB/s (csrc/l2_read.cu, "
+          f"16 MB L2-resident buffer read 8 times). gather_lane at the L2 "
+          f"level: its two passes move {design_bytes} B through L2, bound "
+          f"{design_ms:.5f} ms; the (8, HW) layout read directly would move "
+          f"{direct_sectors} B of 32-B sectors, bound {direct_ms:.5f} ms "
+          f"(the byte bound is at the device-memory level); gather_lane "
+          f"{lane:.4f} ms against torch.index_select {library_lane:.4f} ms")
     variants = {"gather_rows": ("kernel", probe["plain"], "library", 1),
                 "gather_rows3": ("kernel3", probe["plain3"], None, 3),
                 "gather_lane": ("kernel_lane", lane_plain, "library_lane",
@@ -618,6 +750,14 @@ def phase_gather(device):
               f"bound {out[name]['bound_ms']:.5f} ms (bytes) and "
               + (f"torch.index_select {out[name]['library_ms']:.4f} ms"
                  if library else "no single PyTorch call"))
+    out["gather_rows3"]["three_index_select_ms"] = \
+        probe["library3"]["device_ms"]
+    out["gather_lane"].update(
+        l2_read_tb_per_s=l2_rate / 1e12, l2_bound_ms=design_ms,
+        direct_layout_l2_sector_bound_ms=direct_ms)
+    print(f"[gather] gather_rows3 beside three torch.index_select calls "
+          f"(not one call, so no yardstick): "
+          f"{probe['library3']['device_ms']:.4f} ms")
     return out
 
 
@@ -870,6 +1010,10 @@ def phase_app_20m(device, ply: bytes) -> None:
 
 
 def kernel_entry(name, source, replaces, launches, per_frame, t) -> dict:
+    extra = {k: t[k] for k in (
+        "three_index_select_ms", "l2_read_tb_per_s", "l2_bound_ms",
+        "direct_layout_l2_sector_bound_ms", "kernel_launches_per_call",
+        "wrapper_calls") if k in t}
     return {"name": name, "route": "cuda",
             "source": f"surfelmeshing_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches,
@@ -878,7 +1022,7 @@ def kernel_entry(name, source, replaces, launches, per_frame, t) -> dict:
             "device_ms": t["device_ms"], "host_ms": t["host_ms"],
             "plain_ms": t["plain_ms"], "plain_host_ms": t["plain_host_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"]}
+            "library_ms": t["library_ms"], **extra}
 
 
 def main() -> int:
@@ -903,14 +1047,14 @@ def main() -> int:
 
 def run_phases(device, anchor) -> list:
     """Phases 3-14 and the end of 15; -> the kernels line's entries."""
-    blend_times = phase_kernel(device)
+    blend_times, wide_times = phase_kernel(device)
     video, seq = synthetic_rgbd_video(SLICE_FRAMES, 640, 480,
                                       noise_sigma=0.002)
     slice_run = phase_slice(device, video, seq)
     blend_times["max_abs_err"] = max(
         blend_times["max_abs_err"],
         phase_slice_inputs(slice_run["taps"], slice_run["radius"]))
-    phase_gpu_vs_cpu(device)
+    wide_run = phase_gpu_vs_cpu(device)
     phase_exact(device, video, slice_run)
     phase_staged(device, video, slice_run)
     phase_ab(device)
@@ -927,7 +1071,11 @@ def run_phases(device, anchor) -> list:
                             "surfelmeshing_tpu/ops/fusion.py:1726",
                             slice_run["launches"],
                             slice_run["launches"] / slice_run["fused"],
-                            blend_times)]
+                            blend_times),
+               kernel_entry("blend_wide", "blend_wide.cu",
+                            "surfelmeshing_tpu/ops/fusion.py:1726",
+                            wide_run["kernels"], 0,
+                            dict(wide_times, wrapper_calls=wide_run["calls"]))]
     kernels += [kernel_entry(k, "gather.cu", replaces[k], g["launches"], 0,
                              g) for k, g in gathers.items()]
     return kernels

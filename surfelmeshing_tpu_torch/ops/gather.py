@@ -69,7 +69,7 @@ def load_library() -> ctypes.CDLL:
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.gather_rows_launch.argtypes = [ptr, ptr, ptr, i64, i32, ptr]
     lib.gather_rows3_launch.argtypes = [ptr] * 7 + [i64, i32, ptr]
-    lib.gather_lane_launch.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
+    lib.gather_lane_launch.argtypes = [ptr, ptr, ptr, ptr, i64, i32, ptr]
     for fn in (lib.gather_rows_launch, lib.gather_rows3_launch,
                lib.gather_lane_launch):
         fn.restype = ctypes.c_int
@@ -159,7 +159,8 @@ def gather_lane(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     transpose (an (N, 8) view) is returned, as the JAX probe returns
     `out.T`.  A source that is already the transpose of a contiguous
     (8, HW) tensor is used as it lies; any other is copied to that
-    layout first."""
+    layout first.  On the card one call runs two kernels: the planes are
+    transposed into a (HW, 8) scratch of rows, then gathered from it."""
     if _on_cpu(src, idx):
         return gather_lane_reference(src, idx)
     hw = src.shape[0]
@@ -169,10 +170,11 @@ def gather_lane(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     out_t = torch.empty((COLS, n), dtype=src.dtype, device=src.device)
     if n == 0:
         return out_t.t()
+    rows = torch.empty((hw, COLS), dtype=src.dtype, device=src.device)
     with torch.cuda.device(src.device):
         _launch("gather_lane", load_library().gather_lane_launch,
-                src_t.data_ptr(), idx.data_ptr(), out_t.data_ptr(), n, hw,
-                COLS, _stream(src.device))
+                src_t.data_ptr(), idx.data_ptr(), out_t.data_ptr(),
+                rows.data_ptr(), n, hw, _stream(src.device))
     gather_lane.launches += 1
     return out_t.t()
 

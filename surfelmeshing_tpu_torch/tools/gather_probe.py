@@ -18,6 +18,9 @@ indices.  Variants, with the JAX probe's names they stand for:
                             port never calls it)
   library_lane -            torch.index_select(src_t, 1, idx) on the
                             (8, HW) layout, the one call for gather_lane
+  library3     -            three torch.index_select(src, 0, idx) calls
+                            beside gather_rows3 (three calls: no one
+                            PyTorch call computes it, so no yardstick)
 
 Inputs come from numpy with the fixed seed SEED: a normal source, src*2,
 src*3, and indices uniform in [0, HW).  Each variant first checks its
@@ -48,7 +51,7 @@ N = 500_736           # padded surfel count of the JAX probe
 COLS = G.COLS
 REPEATS = kernel_timing.REPEATS
 VARIANTS = ("plain", "kernel", "plain3", "kernel3", "kernel_lane", "library",
-            "library_lane")
+            "library_lane", "library3")
 SEED = 0
 
 
@@ -100,6 +103,8 @@ def variant_fns(src, src2, src3, idx):
         "library": lambda: [torch.index_select(src, 0, idx)],
         "library_lane": lambda: [
             torch.index_select(lane_src.t(), 1, idx).t()],
+        "library3": lambda: [torch.index_select(s, 0, idx)
+                             for s in (src, src2, src3)],
     }
 
 

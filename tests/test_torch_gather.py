@@ -112,7 +112,8 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hw,n", [(HW, 1), (HW, 257),
+@pytest.mark.parametrize("hw,n", [(HW, 1), (HW, 257), (97, 4099),
+                                  (gather_probe.HW, 4099),
                                   (gather_probe.HW, gather_probe.N)])
 def test_kernels_match_plain_versions_on_card(cuda_device, hw, n):
     srcs, idx = gather_probe.special_inputs(hw, n, 11)
