@@ -71,13 +71,30 @@ Phases, each printing one or more lines:
  14. app-20m: the same at the default capacity with --active_surfel_budget
      -1: the log reports 0 skipped tiles and the point cloud is app's,
      byte for byte;
- 15. fidelity: the fidelity anchor at 160x120 over 50 frames, the port's
+ 15. batch: BASELINE config 5's count, 8 synthetic 640x480 sequences
+     (distinct scene / trajectory pairs) at 500k capacity each, default
+     settings, in lockstep over 12 fused frames through
+     app/multi_sequence.py's LockstepBatch (parallel/batch.py): ms a
+     lockstep frame (CUDA events), sequence-frames per second and peak
+     device memory; the surfel total equals the sum of the counts, the
+     blending kernel ran 8 times a lockstep frame, and sequences 0 and 7
+     equal single-sequence ReconstructionPipeline runs bit for bit;
+ 16. multi-seq: the multi-sequence app with --device cuda on
+     tests/fixtures/tum_micro and a 640x480 synthetic dataset, then on
+     each alone: rc 0 and each PLY byte-identical to its one-dataset run;
+ 17. shard: one 500k map at 640x480 sharded over 2 gloo ranks spawned on
+     the one card (parallel/shard.py; NCCL refuses two ranks on one GPU),
+     6 fused frames of the slice video: the gathered state equals the
+     single-device state bit for bit, each rank launched the blending
+     kernel once a frame; ms a frame, recorded, not a target;
+ 18. fidelity: the fidelity anchor at 160x120 over 50 frames, the port's
      mesh within 1 mm (mean) of the golden oracle's.  It starts after the
      build: the port fuses on the card and the host-side oracle runs in a
-     worker process while phases 3-14 run; the phase ends last.
-Phases 7-9 and 15 print their wall time.
+     worker process while phases 3-17 run; the phase ends last.
+Phases 7-9 and 16-18 print their wall time.
 Then one JSON line describing the kernels (per kernel: launches on its
-path and per main-path frame, max_abs_err against the plain version,
+path and per main-path frame, for the blending kernel also on the [batch]
+and [shard] paths, max_abs_err against the plain version,
 device / host-inclusive / plain times, the bound with what sets it, and
 the one-call PyTorch yardstick or null) and, last, the result line.
 Any failed check ends the run with a non-zero exit code.
@@ -99,14 +116,18 @@ import numpy as np
 import torch
 
 from surfelmeshing_tpu_torch.app import main as app_main
+from surfelmeshing_tpu_torch.app import multi_sequence as MS
 from surfelmeshing_tpu_torch.config import SurfelMeshingConfig
 from surfelmeshing_tpu_torch.eval import ab_matrix as AB
 from surfelmeshing_tpu_torch.io.checkpoint import load_checkpoint
-from surfelmeshing_tpu_torch.io.synthetic import synthetic_rgbd_video
+from surfelmeshing_tpu_torch.io.synthetic import (synthetic_rgbd_video,
+                                                  write_tum_dataset)
+from surfelmeshing_tpu_torch.io.tum import read_tum_rgbd_dataset
 from surfelmeshing_tpu_torch.meshing import MeshingDriver, engine
 from surfelmeshing_tpu_torch.ops import blend, cuda_build
 from surfelmeshing_tpu_torch.ops import fusion as F
 from surfelmeshing_tpu_torch.ops import gather as G
+from surfelmeshing_tpu_torch.parallel import shard
 from surfelmeshing_tpu_torch.pipeline import ReconstructionPipeline
 from surfelmeshing_tpu_torch.tools import (fidelity_anchor, gather_probe,
                                            kernel_timing)
@@ -303,13 +324,12 @@ def live_pack(pipe) -> np.ndarray:
     return F.state_to_numpy(pipe.state)["pack"][:count]
 
 
-def live_state(pipe) -> dict:
+def live_state(state: F.SurfelState) -> dict:
     """Host copy of the state's live rows and counters."""
-    count = pipe.surfel_count()
+    count = int(state.surfel_count)
     return F.state_to_numpy(dataclasses.replace(
-        pipe.state, pack=pipe.state.pack[:count],
-        neighbors=pipe.state.neighbors[:, :count],
-        nbr_dist=pipe.state.nbr_dist[:, :count]))
+        state, pack=state.pack[:count], neighbors=state.neighbors[:, :count],
+        nbr_dist=state.nbr_dist[:, :count]))
 
 
 STATE_FIELDS = ("pack", "neighbors", "nbr_dist", "surfel_count",
@@ -404,7 +424,7 @@ def phase_slice(device, video, seq) -> dict:
     return dict(launches=launches, fused=fused, taps=taps,
                 ms_frame=run["ms_frame"],
                 radius=pipe.fusion_params.measurement_blending_radius,
-                state=live_state(pipe))
+                state=live_state(pipe.state))
 
 
 def phase_slice_inputs(taps, radius) -> float:
@@ -447,7 +467,7 @@ def gpu_and_cpu_runs(device, modes=None, **config):
         fused = sum(pipe.process_frame(video, i) is not None
                     for i in range(video.frame_count))
         check(fused == 6, f"{fused} frames fused on {dev}")
-        states.append(live_state(pipe))
+        states.append(live_state(pipe.state))
     return states
 
 
@@ -499,7 +519,7 @@ def phase_exact(device, video, slice_run) -> None:
     for name, modes in EXACT_MODES + EXACT_MODES[-1:]:
         run = run_slice(device, video, slice_config(), modes=modes)
         pipe = run["pipe"]
-        state = live_state(pipe)
+        state = live_state(pipe.state)
         count = len(state["pack"])
         print(f"[exact] {name} at 640x480, 500k capacity: {run['fused']} "
               f"frames fused, {run['launches']} blend launches, {count} "
@@ -566,7 +586,7 @@ def phase_staged(device, video, slice_run) -> None:
         check(all(max(cols[name]) > 0 for name in F.COLUMNS),
               f"[staged] {label}: a column is always zero")
         check(skipped == 0, f"[staged] {label}: {skipped} tiles skipped")
-        check(states_equal(live_state(pipe), slice_run["state"]),
+        check(states_equal(live_state(pipe.state), slice_run["state"]),
               f"[staged] {label}: state differs from [slice]'s unstaged run")
         print(f"[staged] {label}: final state bit-identical to [slice]'s "
               f"unstaged 500k run")
@@ -869,7 +889,7 @@ def run_e2e(device, cfg, label: str) -> dict:
     check(rows < max(snaps, 1) * surfels,
           f"{label}: delta snapshots shipped as many rows as full ones")
     return dict(summary=summary, split=split, launches=launches, fused=fused,
-                budgets=budgets, state=live_state(pipe))
+                budgets=budgets, state=live_state(pipe.state))
 
 
 def phase_e2e(device) -> dict:
@@ -1009,11 +1029,157 @@ def phase_app_20m(device, ply: bytes) -> None:
     check(app["ply"] == ply, "app-20m: PLY differs from app's")
 
 
+# BASELINE config 5's eight sequences: distinct (scene, trajectory) pairs.
+BATCH_SEQUENCES = (("default", "arc"), ("occlusion", "arc"), ("thin", "arc"),
+                   ("corner", "arc"), ("default", "lookaway"),
+                   ("occlusion", "lookaway"), ("thin", "push"),
+                   ("corner", "push"))
+BATCH_FUSED = 12
+
+
+def phase_batch(device) -> dict:
+    """Eight 640x480 sequences at 500k capacity each, default settings, in
+    lockstep over 12 fused frames (app/multi_sequence.py's LockstepBatch
+    on in-memory videos): CUDA events over the lockstep frames after the
+    first, the blending launches of the run, sequences 0 and 7 against
+    single-sequence ReconstructionPipeline runs of their videos, bit for
+    bit."""
+    t0 = time.perf_counter()
+    cfg = slice_config()
+    half = cfg.outlier_filtering_frame_count // 2
+    videos = [synthetic_rgbd_video(BATCH_FUSED + 2 * half, 640, 480,
+                                   noise_sigma=0.002, scene=scene,
+                                   trajectory=trajectory)[0]
+              for scene, trajectory in BATCH_SEQUENCES]
+    render_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    live_before = torch.cuda.memory_allocated() / 2 ** 20
+    lock = MS.LockstepBatch(videos, cfg, device)
+    frames = list(lock.frame_range())
+    check(len(frames) == BATCH_FUSED, f"[batch] {len(frames)} lockstep frames")
+    zero_blend_counts()
+    lock.run(frames[:1])
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    start.record()
+    total = lock.run(frames[1:])
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches, wide = blend_counts()
+    timed = len(frames) - 1
+    states = [live_state(st) for st in lock.states]
+    counts = [int(st["surfel_count"]) for st in states]
+    n = len(videos)
+    print(f"[batch] {n} sequences at 640x480, 500k capacity each, default "
+          f"settings, {len(frames)} lockstep frames: "
+          f"{start.elapsed_time(end) / timed:.3f} ms a lockstep frame (CUDA "
+          f"events over {timed} frames after 1), {n * timed / wall:.2f} "
+          f"sequence-frames/s (host wall), {peak_mib()} MiB peak device "
+          f"memory allocated ({live_before:.1f} MiB of it held by earlier "
+          f"phases); surfels {counts}, total {int(total)}; "
+          f"{launches} blend launches; rendering {render_s:.1f} s on the "
+          f"host")
+    check(int(total) == sum(counts), "[batch] total is not the sum of the "
+          "sequences' counts")
+    check(all(c > 0 for c in counts), "[batch] a sequence has no surfels")
+    check(all(int(st["overflow_count"]) == 0 for st in states),
+          "[batch] surfel overflow")
+    check((launches, wide) == (n * len(frames), 0), f"[batch] {launches} "
+          f"blend launches (wide path {wide}) for {n} x {len(frames)} "
+          f"sequence-frames")
+    for s in (0, n - 1):
+        run = run_slice(device, videos[s], cfg)
+        check(states_equal(live_state(run["pipe"].state), states[s]),
+              f"[batch] sequence {s} differs from its single-sequence run")
+        print(f"[batch] sequence {s} ({'/'.join(BATCH_SEQUENCES[s])}): "
+              f"bit-identical to a single-sequence ReconstructionPipeline "
+              f"run ({counts[s]} surfels; {run['ms_frame']:.3f} ms/frame "
+              f"alone, CUDA events)")
+    return dict(launches=launches, fused=len(frames))
+
+
+def phase_multi_seq(device) -> None:
+    """The multi-sequence app on the card: tests/fixtures/tum_micro and a
+    640x480 synthetic dataset together, then each alone; the PLYs equal
+    byte for byte."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        synth = write_tum_dataset(str(tmp / "synthetic"), num_frames=12,
+                                  width=640, height=480, scene="thin",
+                                  trajectory="push")
+        datasets = [str(FIXTURE), synth]
+        # The app stops at the shorter sequence: cap each run at the
+        # frames the pair fuses, so a dataset alone fuses the same ones.
+        usable = min(read_tum_rgbd_dataset(d, "groundtruth.txt", 0.05)
+                     .frame_count for d in datasets)
+        flags = ["--max_surfel_count", "500000", "--max_frames",
+                 str(usable - 2), "--device", str(device)]
+        rc = MS.main([*datasets, "--output_dir", str(tmp / "both"), *flags])
+        check(rc == 0, f"[multi-seq] exited with {rc}")
+        sizes = []
+        for d in datasets:
+            name = Path(d).name
+            alone = tmp / f"alone_{name}"
+            check(MS.main([d, "--output_dir", str(alone), *flags]) == 0,
+                  f"[multi-seq] {name} alone failed")
+            both = (tmp / "both" / f"{name}.ply").read_bytes()
+            check(both == (alone / f"{name}.ply").read_bytes(),
+                  f"[multi-seq] {name}.ply differs from its one-dataset run")
+            sizes.append(f"{name}.ply {len(both)} B")
+    print(f"[multi-seq] app/multi_sequence.py --device {device} on tum_micro "
+          f"and a 640x480 synthetic dataset, {usable - 2} lockstep frames: rc "
+          f"0; {', '.join(sizes)}, each byte-identical to its one-dataset "
+          f"run; phase wall {time.perf_counter() - t0:.1f} s")
+
+
+SHARD_FUSED, SHARD_RANKS = 6, 2
+
+
+def phase_shard(device, video) -> dict:
+    """One 500k map sharded over 2 gloo ranks spawned on the one card,
+    6 fused frames of the slice video at 640x480; the gathered state
+    equals the single-device state bit for bit."""
+    t0 = time.perf_counter()
+    cfg = slice_config()
+    lock = MS.LockstepBatch([video], cfg, device)
+    frames = []
+    for i in list(lock.frame_range())[:SHARD_FUSED]:
+        inputs = lock.frame_inputs(lock.assemble(i))
+        frames.append(tuple(t[0] for t in inputs) + (i,))
+    ref = F.create_surfel_state(cfg.max_surfel_count, device)
+    for f in frames:
+        ref = F.integrate_frame(ref, *f[:6], f[6], lock.params[0])
+    want = F.state_to_numpy(ref)
+    got = shard.spawn_sharded(lock.params[0], cfg.max_surfel_count, frames,
+                              SHARD_RANKS, device, timeout=600)
+    launches = [int(n) for n in got["blend_launches"]]
+    ms = 1000.0 * float(np.mean(got["frame_seconds"][1:]))
+    exact = states_equal(got, want)
+    print(f"[shard] one 640x480 map of {cfg.max_surfel_count} rows over "
+          f"{SHARD_RANKS} gloo ranks on {torch.cuda.get_device_name(0)} "
+          f"({cfg.max_surfel_count // SHARD_RANKS} rows a rank), "
+          f"{SHARD_FUSED} fused frames of the slice video: "
+          f"{int(got['surfel_count'])} surfels, {int(got['merge_count'])} "
+          f"merges; gathered state bit-identical to the single-device state "
+          f"{exact}; {ms:.3f} ms a frame on rank 0 (host clock, device "
+          f"synchronised, frames after the first); blend launches per rank "
+          f"{launches}; phase wall {time.perf_counter() - t0:.1f} s")
+    check(exact, "[shard] sharded state differs from the single-device state")
+    check(launches == [SHARD_FUSED] * SHARD_RANKS, f"[shard] blend launches "
+          f"{launches} for {SHARD_FUSED} frames a rank")
+    return dict(launches=launches, ms_frame=ms)
+
+
 def kernel_entry(name, source, replaces, launches, per_frame, t) -> dict:
     extra = {k: t[k] for k in (
         "three_index_select_ms", "l2_read_tb_per_s", "l2_bound_ms",
         "direct_layout_l2_sector_bound_ms", "kernel_launches_per_call",
-        "wrapper_calls") if k in t}
+        "wrapper_calls", "batch_path_launches", "shard_path_launches")
+        if k in t}
     return {"name": name, "route": "cuda",
             "source": f"surfelmeshing_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches,
@@ -1046,7 +1212,7 @@ def main() -> int:
 
 
 def run_phases(device, anchor) -> list:
-    """Phases 3-14 and the end of 15; -> the kernels line's entries."""
+    """Phases 3-17 and the end of 18; -> the kernels line's entries."""
     blend_times, wide_times = phase_kernel(device)
     video, seq = synthetic_rgbd_video(SLICE_FRAMES, 640, 480,
                                       noise_sigma=0.002)
@@ -1063,6 +1229,9 @@ def run_phases(device, anchor) -> list:
     phase_e2e_20m(device, e2e)
     ply = phase_app(device)
     phase_app_20m(device, ply)
+    batch_run = phase_batch(device)
+    phase_multi_seq(device)
+    shard_run = phase_shard(device, video)
     phase_fidelity(anchor)
     replaces = {"gather_rows": "tools/gather_probe.py:66",
                 "gather_rows3": "tools/gather_probe.py:91",
@@ -1071,7 +1240,9 @@ def run_phases(device, anchor) -> list:
                             "surfelmeshing_tpu/ops/fusion.py:1726",
                             slice_run["launches"],
                             slice_run["launches"] / slice_run["fused"],
-                            blend_times),
+                            dict(blend_times,
+                                 batch_path_launches=batch_run["launches"],
+                                 shard_path_launches=shard_run["launches"])),
                kernel_entry("blend_wide", "blend_wide.cu",
                             "surfelmeshing_tpu/ops/fusion.py:1726",
                             wide_run["kernels"], 0,

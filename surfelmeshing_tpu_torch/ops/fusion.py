@@ -30,6 +30,7 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import resolve_device
 from ..utils.timing import COLUMNS
@@ -457,6 +458,34 @@ class _Tiling(NamedTuple):
     sync: Callable[[torch.Tensor], torch.Tensor]
 
 
+class _Sharding(NamedTuple):
+    """Surfel-axis shard context (the JAX package's _Sharding): this rank
+    holds rows [offset, offset + n_local) of one map whose rows are split
+    in rank order over the process group.
+
+    Per-pixel maps are scattered locally and combined over the group right
+    after the scatter (MIN for the min-depth raster and the supporter and
+    conflictor claims, SUM for the packed count + depth sum): min and
+    integer add are order-independent, so the combined map equals the
+    global scatter bit for bit.  Gathers by global row index read the
+    pack all-gathered in rank order.  Collectives are dist.all_reduce and
+    dist.all_gather, which gloo runs on CPU and on CUDA tensors."""
+    group: Optional[dist.ProcessGroup]
+    world_size: int
+    offset: int
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The ranks' tensors concatenated along dim 0 in rank order."""
+        parts = [torch.empty_like(t) for _ in range(self.world_size)]
+        dist.all_gather(parts, t.contiguous(), group=self.group)
+        return torch.cat(parts)
+
+    def combine(self, t: torch.Tensor, op) -> torch.Tensor:
+        """All-reduce of `t` over the group, in place; returns it."""
+        dist.all_reduce(t, op=op, group=self.group)
+        return t
+
+
 def _integrate_tiled(state, depth, normals_xy, radius_img, color,
                      global_T_local, local_T_global, frame_index, params,
                      taps, stages) -> SurfelState:
@@ -579,10 +608,12 @@ def _integrate_tiled(state, depth, normals_xy, radius_img, color,
 def _integrate_body(state, depth, normals_xy, radius_img, color,
                     global_T_local, local_T_global, frame_index, params,
                     taps, stages=None,
-                    tiling: Optional[_Tiling] = None) -> SurfelState:
-    """The 8 phases over the state's rows: the whole capacity, or the
-    working set of the tiled path (`tiling`).  `stages` is called at the
-    JAX package's stage boundaries (its _StageScopes calls)."""
+                    tiling: Optional[_Tiling] = None, *,
+                    shard: Optional[_Sharding] = None) -> SurfelState:
+    """The 8 phases over the state's rows: the whole capacity, the working
+    set of the tiled path (`tiling`) or this rank's rows of a map sharded
+    over the surfel axis (`shard`).  `stages` is called at the JAX
+    package's stage boundaries (its _StageScopes calls)."""
     def tap(name, value):
         if taps is not None:
             taps[name] = value
@@ -590,6 +621,11 @@ def _integrate_body(state, depth, normals_xy, radius_img, color,
     def stage(column):
         if stages is not None:
             stages(column)
+
+    def combine(img, op):
+        """This rank's scatter map combined with the other ranks'
+        (identity off the sharded path)."""
+        return img if shard is None else shard.combine(img, op)
 
     n = state.pack.shape[0]
     h, w = params.height, params.width
@@ -603,7 +639,12 @@ def _integrate_body(state, depth, normals_xy, radius_img, color,
 
     pack0 = state.pack
     pack0_i = pack0.view(torch.int32)
-    if tiling is None:
+    if shard is not None:
+        assert tiling is None
+        idx = shard.offset + torch.arange(n, dtype=torch.int32, device=dev)
+        merge_src = shard.all_gather(pack0)
+        sync = shard.all_gather
+    elif tiling is None:
         idx = torch.arange(n, dtype=torch.int32, device=dev)
         merge_src = pack0
 
@@ -637,8 +678,9 @@ def _integrate_body(state, depth, normals_xy, radius_img, color,
     # --- Phase 1: RenderMinDepth (kernels.cu:1458-1557) -------------------
     # The same z tensor feeds the min scatter and the `first == z` tests.
     stage("data_association")
-    first_depth = _pixel_map(hw, torch.cat([pix_a, pix_b]),
-                             torch.cat([z, z]), math.inf, "amin")
+    first_depth = combine(_pixel_map(hw, torch.cat([pix_a, pix_b]),
+                                     torch.cat([z, z]), math.inf, "amin"),
+                          dist.ReduceOp.MIN)
     tap("first_depth", first_depth)
 
     # --- Phase 2: Associate (kernels.cu:1586-1854) ------------------------
@@ -701,12 +743,14 @@ def _integrate_body(state, depth, normals_xy, radius_img, color,
         .clamp(0, (1 << 17) - 1).to(torch.int32)
     sup_pix = torch.cat([torch.where(support_a, pix_a, INVALID_INDEX),
                          torch.where(support_b, pix_b, INVALID_INDEX)])
-    supporting_surfels = _pixel_map(hw, sup_pix, torch.cat([idx, idx]),
-                                    INVALID_INDEX, "amin")
+    supporting_surfels = combine(
+        _pixel_map(hw, sup_pix, torch.cat([idx, idx]), INVALID_INDEX,
+                   "amin"), dist.ReduceOp.MIN)
     packed_ab = torch.cat([
         torch.where(support_a, z_units + (1 << SUM_BITS), 0),
         torch.where(support_b, z_units + (1 << SUM_BITS), 0)])
-    packed = _pixel_map(hw, sup_pix, packed_ab, 0, "sum")
+    packed = combine(_pixel_map(hw, sup_pix, packed_ab, 0, "sum"),
+                     dist.ReduceOp.SUM)
     support_counts = packed >> SUM_BITS
     support_depth_sums = (packed & ((1 << SUM_BITS) - 1)) \
         .to(torch.float32) * inv_scale
@@ -715,12 +759,12 @@ def _integrate_body(state, depth, normals_xy, radius_img, color,
     if params.exact_conflict_arbitration:
         # The reference's conflictor map, its last-writer race resolved by
         # the min-index rule: one decrementer per pixel.
-        conflicting_surfels = _pixel_map(
+        conflicting_surfels = combine(_pixel_map(
             hw, torch.cat([pix_a, pix_b]),
             torch.cat([torch.where(conflict_a | m_conflict, idx,
                                    INVALID_INDEX),
                        torch.where(conflict_b, idx, INVALID_INDEX)]),
-            INVALID_INDEX, "amin")
+            INVALID_INDEX, "amin"), dist.ReduceOp.MIN)
     tap("supporting_surfels", supporting_surfels)
     tap("support_counts", support_counts)
     tap("support_depth_sums", support_depth_sums)
@@ -782,7 +826,10 @@ def _integrate_body(state, depth, normals_xy, radius_img, color,
     pack_i[:, STAMP] = torch.where(m_on, 0, pack_i[:, STAMP])
     pack[:, RAD] = torch.where(m_on, -1.0, pack[:, RAD])
     pack[:, DETACH] = torch.maximum(pack[:, DETACH], m_on.to(torch.float32))
-    merge_count = state.merge_count + m_on.sum(dtype=torch.int32)
+    m_total = m_on.sum(dtype=torch.int32)
+    if shard is not None:
+        m_total = shard.combine(m_total.reshape(1), dist.ReduceOp.SUM)[0]
+    merge_count = state.merge_count + m_total
     tap("merge_mask", m_on)
     tap("pack_after_merge", pack)
 

@@ -83,6 +83,30 @@ def fusion_params_from_config(config: SurfelMeshingConfig,
     )
 
 
+def preprocess_kwargs(config: SurfelMeshingConfig,
+                      camera: PinholeCamera) -> dict:
+    """preprocess_frame keyword arguments from the config and the camera
+    (already pyramid-level-adjusted)."""
+    required = config.outlier_filtering_required_inliers
+    if required in (config.outlier_filtering_frame_count, -1):
+        required = None   # the all-inlier kernel variant
+    return dict(
+        sigma_xy=config.bilateral_filter_sigma_xy,
+        sigma_value_factor=config.bilateral_filter_sigma_depth_factor,
+        radius_factor=config.bilateral_filter_radius_factor,
+        max_depth_u16=int(config.depth_scaling * config.max_depth),
+        depth_valid_region_radius=config.depth_valid_region_radius,
+        tolerance=config.outlier_filtering_depth_tolerance_factor,
+        required_inliers=required,
+        erosion_radius=config.depth_erosion_radius,
+        observation_angle_threshold_deg=(
+            config.observation_angle_threshold_deg),
+        depth_scaling=config.depth_scaling,
+        point_radius_extension_factor=config.point_radius_extension_factor,
+        point_radius_clamp_factor=config.point_radius_clamp_factor,
+        fx=camera.fx, fy=camera.fy, cx=camera.cx, cy=camera.cy)
+
+
 class ReconstructionPipeline:
     """Depth preprocessing + surfel fusion over an RGB-D stream."""
 
@@ -165,7 +189,7 @@ class ReconstructionPipeline:
             if cfg.debug_depth_preprocessing else None
         d, nrm, rad = pp.preprocess_frame(
             depth, torch.stack(others), self._to_device(transforms),
-            **self._pp_kwargs(), on_stage=dump)
+            **preprocess_kwargs(cfg, self.camera), on_stage=dump)
         t1 = time.perf_counter()
         color = torch.from_numpy(self._frame_color(video, frame_index)) \
             .to(self.device)
@@ -336,33 +360,6 @@ class ReconstructionPipeline:
         vis = np.clip(255.0 * arr / max(vmax, 1.0), 0, 255).astype(np.uint8)
         Image.fromarray(vis).save(
             f"debug_preprocessing/frame{frame_index:06d}_{stage}.png")
-
-    def _required_inliers(self):
-        cfg = self.config
-        required = cfg.outlier_filtering_required_inliers
-        if required in (cfg.outlier_filtering_frame_count, -1):
-            return None   # the all-inlier kernel variant
-        return required
-
-    def _pp_kwargs(self) -> dict:
-        """preprocess_frame keyword arguments from the config (the camera
-        is already pyramid-level-adjusted)."""
-        cfg, cam = self.config, self.camera
-        return dict(
-            sigma_xy=cfg.bilateral_filter_sigma_xy,
-            sigma_value_factor=cfg.bilateral_filter_sigma_depth_factor,
-            radius_factor=cfg.bilateral_filter_radius_factor,
-            max_depth_u16=int(cfg.depth_scaling * cfg.max_depth),
-            depth_valid_region_radius=cfg.depth_valid_region_radius,
-            tolerance=cfg.outlier_filtering_depth_tolerance_factor,
-            required_inliers=self._required_inliers(),
-            erosion_radius=cfg.depth_erosion_radius,
-            observation_angle_threshold_deg=(
-                cfg.observation_angle_threshold_deg),
-            depth_scaling=cfg.depth_scaling,
-            point_radius_extension_factor=cfg.point_radius_extension_factor,
-            point_radius_clamp_factor=cfg.point_radius_clamp_factor,
-            fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy)
 
     # -- outputs (each reads the device: a host synchronisation) ------------
 

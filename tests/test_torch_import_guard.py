@@ -59,7 +59,9 @@ def test_port_has_modules():
             "io/synthetic.py", "utils/se3.py", "utils/camera.py",
             "utils/spline.py", "utils/timing.py", "eval/mesh_accuracy.py",
             "app/main.py", "app/evaluate.py", "eval/ab_matrix.py",
-            "tools/gather_probe.py", "tools/fidelity_anchor.py"} <= names
+            "tools/gather_probe.py", "tools/fidelity_anchor.py",
+            "parallel/__init__.py", "parallel/batch.py", "parallel/shard.py",
+            "parallel/dryrun.py", "app/multi_sequence.py"} <= names
     assert "meshing.py" not in names
 
 
