@@ -5,9 +5,9 @@
 Phases, each printing one or more lines:
   1. device: requires CUDA (exits non-zero otherwise), prints the card and
      its power limit, turns TF32 off;
-  2. build: compiles csrc/blend.cu, blend_wide.cu, gather.cu and
-     l2_read.cu (one nvcc each) and the native mesher (g++), all started
-     together;
+  2. build: compiles csrc/blend.cu, blend_wide.cu (both with the shared
+     header blend_common.cuh), gather.cu and l2_read.cu (one nvcc each)
+     and the native mesher (g++), all started together;
   3. kernel: the one-launch blending kernel bit for bit against its plain
      PyTorch version on seeded maps at 640x480 with radii 1, 2, 3, 6, 12
      and MAX_RADIUS and at radius 12 on shapes that are not multiples of
@@ -16,21 +16,24 @@ Phases, each printing one or more lines:
      radius 257 on a 24x32 map with no border (the reference's sentinel
      collision: every eligible pixel +0.5) and at radius 300 on a 64x640
      map whose rings pass 255; launch counts show which path each radius
-     took; at 640x480 radius 12 (one-launch) and 48 (wide) the device
-     time (a CUDA graph of repeated launches replayed between CUDA events),
-     the host-inclusive time (back-to-back calls between CUDA events) and
-     the plain version's, beside the bound, and the kernels a call
-     enqueued as the launchers count them;
+     took; at 640x480 radius 12 and 32 (one-launch) and 48 (wide) the
+     device time (a CUDA graph of repeated launches replayed between CUDA
+     events), the host-inclusive time (back-to-back calls between CUDA
+     events) and the plain version's, beside the bound, and the kernels a
+     call enqueued as the launchers count them; then the wide path at
+     radius 48 for each (T ring iterations a launch, core rows) of
+     WIDE_SWEEP, bit for bit and timed;
   4. slice: ReconstructionPipeline at 640x480 with 500k surfel capacity and
      default settings over the 24-frame synthetic video, every frame with a
      full outlier window fused; launch counts prove the kernel ran;
   5. kernel on the slice's own blending inputs (captured through the taps
      on the last warm-up frame, the map holding surfels by then), bit for
-     bit, and its device time on them;
+     bit, and its device time on them; the same for the wide path at
+     radius 48;
   6. the same port slice on the GPU and on the CPU (plain versions) at
      160x120 over 6 fused frames, held to the CPU tests' tolerance; then
      both again with --measurement_blending_radius 48, bit for bit, every
-     GPU frame through the wide path (its kernel launches counted);
+     GPU frame through the wide path (its chunk kernels counted);
   7. exact: the slice with each reference-parity fusion mode
      (symmetric_regularization=False, exact_conflict_arbitration=True,
      fast_neighbor_update=False) and with all three: surfels, no overflow,
@@ -42,6 +45,9 @@ Phases, each printing one or more lines:
      per-phase columns (mean of the timed frames) and their sum beside the
      CUDA-event time of the whole frame; each final state bit-identical to
      the slice's unstaged one;
+     slice-r48: the slice with --measurement_blending_radius 48, every
+     fused frame through the wide path (chunk kernels counted): ms/frame
+     beside [slice]'s, then staged, its blending column beside [staged]'s;
   9. ab: the A/B matrix's hostile subset (occlusion and thin scenes on the
      look-away trajectory, default vs all-exact modes) at 160x120 over 8
      frames, each cell within 5%;
@@ -131,6 +137,8 @@ from surfelmeshing_tpu_torch.parallel import shard
 from surfelmeshing_tpu_torch.pipeline import ReconstructionPipeline
 from surfelmeshing_tpu_torch.tools import (fidelity_anchor, gather_probe,
                                            kernel_timing)
+from surfelmeshing_tpu_torch.tools.blend_timing import \
+    seeded_maps as random_maps
 
 SCALE = 5000.0
 WARMUP_FRAMES = 4
@@ -165,18 +173,6 @@ def phase_device() -> str:
           f"matmul and cuDNN")
     print(smi.strip().splitlines()[0])
     return name
-
-
-def random_maps(h, w, seed, device):
-    rng = np.random.default_rng(seed)
-    depth_f = (rng.integers(0, 3, (h, w)) * 5000 +
-               rng.integers(0, 200, (h, w))).astype(np.float32)
-    supported = (rng.random((h, w)) < 0.7).astype(np.float32)
-    valid = (depth_f > 0).astype(np.float32)
-    avg = (depth_f / SCALE +
-           0.01 * rng.standard_normal((h, w))).astype(np.float32)
-    return [torch.from_numpy(m).to(device)
-            for m in (depth_f, supported, valid, avg)]
 
 
 def blend_counts() -> tuple:
@@ -315,8 +311,42 @@ def phase_kernel(device):
           "pixel moved by +0.5 (the reference's ring-255 sentinel)")
     maps = random_maps(480, 640, 2, device)
     times = time_blend(maps, 12, device, 50, "one-launch kernel")
+    worst = time_blend(maps, blend.MAX_RADIUS, device, 20,
+                       "one-launch kernel at its largest radius")
     wide = time_blend(maps, 48, device, 30, "wide path")
-    return dict(times, max_abs_err=err), dict(wide, max_abs_err=wide_err)
+    wide["sweep"], sweep_err = wide_sweep(maps, 48)
+    return (dict(times, max_abs_err=err, radius32_device_ms=worst["device_ms"]),
+            dict(wide, max_abs_err=max(wide_err, sweep_err)))
+
+
+WIDE_SWEEP = ((8, 32), (8, 40), (12, 32), (12, 40), (16, 32), (16, 40),
+              (16, 48), (20, 48), (24, 40), (24, 48))
+
+
+def wide_sweep(maps, radius):
+    """The wide path at `radius` with T ring iterations a launch and cores
+    of core_h rows, for each (T, core_h) of WIDE_SWEEP: bit for bit against
+    the plain version, and its device time; -> the sweep's entries and the
+    largest difference."""
+    want = blend.blend_core_reference(*maps, radius, SCALE)
+    entries, err = [], 0.0
+    for chunk, core_h in WIDE_SWEEP:
+        def step():
+            return blend.blend_wide(*maps, radius, SCALE, chunk, core_h)
+        got = step()
+        check(bits_equal(got, want), f"wide path with T {chunk}, core "
+              f"{core_h} rows differs from its plain version")
+        err = max(err, max_abs_err(got, want))
+        ms = kernel_timing.device_ms(step, 20)
+        entries.append(dict(chunk=chunk, core_h=core_h, device_ms=ms))
+    print(f"[kernel] wide path at radius {radius}, {tuple(maps[0].shape)} "
+          f"seeded maps, sweep of (T ring iterations a launch, core rows), "
+          f"each bit-identical to the plain version; device ms (CUDA graph "
+          f"of 20 calls): " + ", ".join(
+              f"T {e['chunk']} x {e['core_h']}: {e['device_ms']:.4f}"
+              for e in entries) + f"; default T {blend.WIDE_CHUNK} x "
+          f"{blend.WIDE_CORE_H}")
+    return entries, err
 
 
 def live_pack(pipe) -> np.ndarray:
@@ -390,9 +420,12 @@ def run_slice(device, video, cfg, modes=None, taps=None) -> dict:
             wall = time.perf_counter() - t0
     timed = len(fused_frames) - WARMUP_FRAMES
     check(fused == len(fused_frames), "not every full-window frame fused")
-    check(blend.blend_core.wide_launches == 0, "the default radius took the "
-          "wide blending path")
+    if cfg.measurement_blending_radius <= blend.MAX_RADIUS:
+        check(blend.blend_core.wide_launches == 0, "a radius <= "
+              f"{blend.MAX_RADIUS} took the wide blending path")
     return dict(pipe=pipe, fused=fused, launches=blend.blend_core.launches,
+                wide_launches=blend.blend_core.wide_launches,
+                wide_kernels=blend.blend_core.wide_kernel_launches,
                 timed=timed, ms_frame=start.elapsed_time(end) / timed,
                 wall_ms=1000.0 * wall / timed,
                 frame_ms=[a.elapsed_time(b) for a, b in frame_events])
@@ -427,19 +460,25 @@ def phase_slice(device, video, seq) -> dict:
                 state=live_state(pipe.state))
 
 
-def phase_slice_inputs(taps, radius) -> float:
+def phase_slice_inputs(taps, radius, wide_radius=48):
+    """The blending kernel on the slice's own inputs at the slice's radius
+    and the wide path on them at `wide_radius`: bit for bit and device
+    times; -> (max |diff| of each, wide path's device ms)."""
     h, w = taps["depth"].shape
     maps = [m.contiguous() for m in F.blend_inputs(
         taps["depth"], taps["supporting_surfels"].reshape(h, w),
         taps["support_counts"].reshape(h, w),
         taps["support_depth_sums"].reshape(h, w))]
-    err = compare_kernel(maps, radius, f"slice blending inputs (fused frame "
-                         f"{WARMUP_FRAMES})")
-    ms = kernel_timing.device_ms(
-        lambda: blend.blend_core(*maps, radius, SCALE), 50)
-    print(f"[kernel] slice blending inputs, radius {radius}: device {ms:.4f} "
-          f"ms (CUDA graph of 50 launches)")
-    return err
+    label = f"slice blending inputs (fused frame {WARMUP_FRAMES})"
+    err = compare_kernel(maps, radius, label)
+    wide_err = compare_kernel(maps, wide_radius, label)
+    ms, wide_ms = (kernel_timing.device_ms(
+        lambda r=r: blend.blend_core(*maps, r, SCALE), 50)
+        for r in (radius, wide_radius))
+    print(f"[kernel] slice blending inputs: radius {radius} device {ms:.4f} "
+          f"ms, wide path at radius {wide_radius} device {wide_ms:.4f} ms "
+          f"(CUDA graphs of 50 calls)")
+    return err, wide_err, wide_ms
 
 
 def mean_nearest_distance(a: np.ndarray, b: np.ndarray, device) -> float:
@@ -499,9 +538,17 @@ def phase_gpu_vs_cpu(device):
     check(exact, "radius 48: GPU and CPU states differ")
     check((one, wide) == (0, 6), f"radius 48: {wide} wide-path and {one} "
           f"one-launch blending calls for 6 fused frames")
-    check(kernels == wide * (48 - 1), f"radius 48: {kernels} wide-path "
-          f"kernels for {wide} calls, not an init and 46 ring kernels each")
+    chunks = wide_chunks(48)
+    check(kernels == wide * chunks, f"radius 48: {kernels} wide-path "
+          f"kernels for {wide} calls, not {chunks} chunk kernels each")
     return dict(calls=wide, kernels=kernels)
+
+
+def wide_chunks(radius: int) -> int:
+    """Chunk kernels a wide-path call enqueues: the first carries the
+    border iteration and WIDE_CHUNK-1 ring iterations, each later one
+    WIDE_CHUNK."""
+    return -(-(radius - 1) // blend.WIDE_CHUNK)
 
 
 # The reference-parity fusion modes: each switch alone, then all three.
@@ -549,13 +596,27 @@ def phase_exact(device, video, slice_run) -> None:
     print(f"[exact] phase wall {time.perf_counter() - t0:.1f} s")
 
 
-def phase_staged(device, video, slice_run) -> None:
+def staged_means(run) -> dict:
+    """Per-phase ms of a run with log_timings_staged: the mean of its timed
+    frames' columns (preprocessing and F.COLUMNS)."""
+    lines = run["pipe"].timings_log_lines[-run["timed"]:]
+    cols = {name: [] for name in ("preprocessing",) + F.COLUMNS}
+    for line in lines:
+        words = line.split()
+        values = dict(zip(words[0::2], words[1::2]))
+        for name, ms in cols.items():
+            ms.append(float(values[name]))
+    return {name: sum(ms) / len(ms) for name, ms in cols.items()}
+
+
+def phase_staged(device, video, slice_run) -> dict:
     """--log_timings_staged at 640x480 with 500k capacity and with the
     default capacity and the auto active-set budget: the seven fusion
     columns of the timings lines (mean over the timed frames) beside the
     CUDA-event time of the whole frame; each state equals [slice]'s
     unstaged 500k run bit for bit."""
     t0 = time.perf_counter()
+    means = {}
     for label, capacity, budget in (
             ("500k", 500_000, 0),
             ("20M, --active_surfel_budget -1",
@@ -565,14 +626,8 @@ def phase_staged(device, video, slice_run) -> None:
             max_surfel_count=capacity, active_surfel_budget=budget)
         run = run_slice(device, video, cfg)
         pipe = run["pipe"]
-        lines = pipe.timings_log_lines[-run["timed"]:]
-        cols = {name: [] for name in ("preprocessing",) + F.COLUMNS}
-        for line in lines:
-            words = line.split()
-            values = dict(zip(words[0::2], words[1::2]))
-            for name, ms in cols.items():
-                ms.append(float(values[name]))
-        mean = {name: sum(ms) / len(ms) for name, ms in cols.items()}
+        mean = staged_means(run)
+        means.setdefault("500k", mean)
         fusion = sum(mean[name] for name in F.COLUMNS)
         frame = sum(run["frame_ms"][-run["timed"]:]) / run["timed"]
         skipped = int(pipe.state.skipped_tile_count)
@@ -583,7 +638,7 @@ def phase_staged(device, video, slice_run) -> None:
               f"frame (CUDA events, preprocessing included; host "
               f"preprocessing {mean['preprocessing']:.3f} ms); "
               f"{skipped} skipped tiles")
-        check(all(max(cols[name]) > 0 for name in F.COLUMNS),
+        check(all(mean[name] > 0 for name in F.COLUMNS),
               f"[staged] {label}: a column is always zero")
         check(skipped == 0, f"[staged] {label}: {skipped} tiles skipped")
         check(states_equal(live_state(pipe.state), slice_run["state"]),
@@ -591,6 +646,44 @@ def phase_staged(device, video, slice_run) -> None:
         print(f"[staged] {label}: final state bit-identical to [slice]'s "
               f"unstaged 500k run")
     print(f"[staged] phase wall {time.perf_counter() - t0:.1f} s")
+    return means["500k"]
+
+
+def phase_slice_wide(device, video, slice_run, staged) -> dict:
+    """The slice at 640x480 / 500k with --measurement_blending_radius 48,
+    every fused frame through the wide path: ms/frame beside [slice]'s,
+    then staged, its blending column beside [staged]'s 500k one; -> the
+    chunk kernels of the unstaged run."""
+    t0 = time.perf_counter()
+    run = run_slice(device, video,
+                    slice_config(measurement_blending_radius=48))
+    pipe, fused = run["pipe"], run["fused"]
+    chunks = wide_chunks(48)
+    print(f"[slice-r48] 640x480, 500k capacity, radius 48: {fused} frames "
+          f"fused, wide-path calls {run['wide_launches']} ({run['wide_kernels']} "
+          f"chunk kernels), one-launch {run['launches']}; surfel count "
+          f"{pipe.surfel_count()}, {run['ms_frame']:.3f} ms/frame (CUDA "
+          f"events over {run['timed']} frames) against [slice]'s "
+          f"{slice_run['ms_frame']:.3f} at radius {slice_run['radius']}")
+    check(pipe.surfel_count() > 0 and int(pipe.state.overflow_count) == 0,
+          "[slice-r48] no surfels or an overflow")
+    check(np.isfinite(live_pack(pipe)).all(), "[slice-r48] NaN/inf in live "
+          "surfel rows")
+    check((run["launches"], run["wide_launches"], run["wide_kernels"]) ==
+          (0, fused, fused * chunks), f"[slice-r48] blending launches "
+          f"{run['launches']} / {run['wide_launches']} / "
+          f"{run['wide_kernels']} for {fused} frames")
+    kernels = run["wide_kernels"]
+    run = run_slice(device, video, slice_config(
+        measurement_blending_radius=48, log_timings="timings.txt",
+        log_timings_staged=True))
+    mean = staged_means(run)
+    print(f"[slice-r48] staged: blending column {mean['measurement_blending']:.3f} ms "
+          f"(mean of {run['timed']} frames) against [staged] 500k's "
+          f"{staged['measurement_blending']:.3f} at radius "
+          f"{slice_run['radius']}; "
+          f"phase wall {time.perf_counter() - t0:.1f} s")
+    return dict(kernels=kernels, fused=fused, ms_frame=run["ms_frame"])
 
 
 def phase_ab(device) -> None:
@@ -1178,7 +1271,9 @@ def kernel_entry(name, source, replaces, launches, per_frame, t) -> dict:
     extra = {k: t[k] for k in (
         "three_index_select_ms", "l2_read_tb_per_s", "l2_bound_ms",
         "direct_layout_l2_sector_bound_ms", "kernel_launches_per_call",
-        "wrapper_calls", "batch_path_launches", "shard_path_launches")
+        "wrapper_calls", "batch_path_launches", "shard_path_launches",
+        "radius32_device_ms", "sweep", "slice_inputs_device_ms",
+        "slice_r48_kernels_per_frame", "gpu_vs_cpu_launches")
         if k in t}
     return {"name": name, "route": "cuda",
             "source": f"surfelmeshing_tpu_torch/csrc/{source}",
@@ -1217,12 +1312,14 @@ def run_phases(device, anchor) -> list:
     video, seq = synthetic_rgbd_video(SLICE_FRAMES, 640, 480,
                                       noise_sigma=0.002)
     slice_run = phase_slice(device, video, seq)
-    blend_times["max_abs_err"] = max(
-        blend_times["max_abs_err"],
-        phase_slice_inputs(slice_run["taps"], slice_run["radius"]))
+    err, wide_err, wide_times["slice_inputs_device_ms"] = \
+        phase_slice_inputs(slice_run["taps"], slice_run["radius"])
+    blend_times["max_abs_err"] = max(blend_times["max_abs_err"], err)
+    wide_times["max_abs_err"] = max(wide_times["max_abs_err"], wide_err)
     wide_run = phase_gpu_vs_cpu(device)
     phase_exact(device, video, slice_run)
-    phase_staged(device, video, slice_run)
+    staged = phase_staged(device, video, slice_run)
+    wide_slice = phase_slice_wide(device, video, slice_run, staged)
     phase_ab(device)
     gathers = phase_gather(device)
     e2e = phase_e2e(device)
@@ -1245,8 +1342,12 @@ def run_phases(device, anchor) -> list:
                                  shard_path_launches=shard_run["launches"])),
                kernel_entry("blend_wide", "blend_wide.cu",
                             "surfelmeshing_tpu/ops/fusion.py:1726",
-                            wide_run["kernels"], 0,
-                            dict(wide_times, wrapper_calls=wide_run["calls"]))]
+                            wide_slice["kernels"], 0,
+                            dict(wide_times,
+                                 slice_r48_kernels_per_frame=wide_slice[
+                                     "kernels"] / wide_slice["fused"],
+                                 gpu_vs_cpu_launches=wide_run["kernels"],
+                                 wrapper_calls=wide_run["calls"]))]
     kernels += [kernel_entry(k, "gather.cu", replaces[k], g["launches"], 0,
                              g) for k, g in gathers.items()]
     return kernels

@@ -61,10 +61,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "blend_common.cuh"
+
 namespace {
 
-constexpr int kRegionW = 64;      // region columns: one 64-bit mask a row
-constexpr int kHalves = 2;        // 32-pixel units a row
+using namespace blend_common;
+
 constexpr int kCoreH = 32;        // output rows a block
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
@@ -94,72 +96,6 @@ __host__ __device__ inline size_t smem_bytes(int halo) {
   const size_t units = region_rows(halo) * kHalves;
   return units * 32 * (3 * sizeof(float) + 2 * sizeof(uint16_t)) +
          units * kMaskCount * sizeof(uint32_t) + 4 * sizeof(int);
-}
-
-__device__ __forceinline__ uint64_t dilate(uint64_t m) {
-  return m | (m << 1) | (m >> 1);
-}
-
-// Row `row` of a mask as 64 bits (bit x = column x); 0 outside the region.
-__device__ __forceinline__ uint64_t row_mask(const uint32_t* m, int row,
-                                             int rows) {
-  return (row >= 0 && row < rows)
-             ? reinterpret_cast<const uint64_t*>(m)[row] : 0ull;
-}
-
-// The ring bits of pixels x-1, x, x+1 (x = 32*half + lane) of a row mask,
-// as bits 0..2; columns outside the region read as 0.
-__device__ __forceinline__ uint32_t window(uint64_t m, int half, int lane) {
-  return static_cast<uint32_t>((half ? m >> 31 : m << 1) >> lane) & 7u;
-}
-
-// Appends the pixels of unit u set in grow | ngrow to `list` (pixel index
-// = 32 u + lane, bit 15 set for an ngrow pixel), the warp's units together
-// with one atomic on `count`.  Every lane of the warp calls it.
-__device__ __forceinline__ void append_pixels(uint32_t grow, uint32_t ngrow,
-                                              int u, uint16_t* list,
-                                              int* count, int lane) {
-  const int n = __popc(grow | ngrow);
-  int upto = n;                       // inclusive prefix sum over the warp
-  #pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int t = __shfl_up_sync(~0u, upto, o);
-    if (lane >= o) upto += t;
-  }
-  int base = 0;
-  if (lane == 31) base = atomicAdd(count, upto);
-  base = __shfl_sync(~0u, base, 31) + upto - n;
-  for (uint32_t w = grow | ngrow; w; w &= w - 1) {
-    const int b = __ffs(w) - 1;
-    list[base++] = static_cast<uint16_t>(
-        (u << 5) | b | (((ngrow >> b) & 1u) << 15));
-  }
-}
-
-// Ring average of one growing pixel (row, x) from the ring masks `ring` of
-// rows row-1..row+1, summed in _blend_core's neighbour order and written to
-// vals; the pixel's depth moves toward it.
-__device__ __forceinline__ void grow_pixel(const uint32_t* ring, int rows,
-                                           int row, int half, int lane,
-                                           float* vals, float* s_depth,
-                                           float blend_w) {
-  const int x = half * 32 + lane;
-  float sum = 0.f;
-  int cnt = 0;
-  #pragma unroll
-  for (int dy = -1; dy <= 1; ++dy) {
-    const uint32_t b = window(row_mask(ring, row + dy, rows), half, lane);
-    const float* v = vals + (row + dy) * kRegionW + x - 1;
-    #pragma unroll
-    for (int dx = 0; dx < 3; ++dx)
-      if (b & (1u << dx)) sum = __fadd_rn(sum, v[dx]);
-    cnt += __popc(b);
-  }
-  const float mean = __fdiv_rn(sum, fmaxf(static_cast<float>(cnt), 1.f));
-  const int i = row * kRegionW + x;
-  vals[i] = mean;
-  s_depth[i] = __fadd_rn(__fadd_rn(s_depth[i], __fmul_rn(blend_w, mean)),
-                         0.5f);
 }
 
 __global__ void __launch_bounds__(kThreads, 2)
@@ -273,20 +209,15 @@ blend_kernel(const float* __restrict__ depth,
     const int zone = (kCoreH + 2 * margin) * kHalves;
     if (it < radius && warp * 32 < zone) {     // the same for the warp
       if (tid == 0) counts[(it + 1) % 3] = 0;  // last read in slot k-1
-      const int u = u_lo + tid, row = u >> 1, shift = (u & 1) * 32;
+      const int u = u_lo + tid;
       uint32_t grow = 0, ngrow = 0;
       if (tid < zone) {
         const uint32_t* ring = mask(kRing + k % 3);
         const uint32_t* nring = mask(kNRing + k % 3);
         const uint32_t open = mask(kOpen)[u];
         const uint32_t nopen = mask(kNOpen)[u];
-        grow = open & static_cast<uint32_t>(
-            dilate(row_mask(ring, row - 1, rows) | row_mask(ring, row, rows) |
-                   row_mask(ring, row + 1, rows)) >> shift);
-        ngrow = nopen & static_cast<uint32_t>(
-            dilate(row_mask(nring, row - 1, rows) |
-                   row_mask(nring, row, rows) |
-                   row_mask(nring, row + 1, rows)) >> shift);
+        grow = open & next_to(ring, u, rows);
+        ngrow = nopen & next_to(nring, u, rows);
         mask(kRing + it % 3)[u] = grow;
         mask(kNRing + it % 3)[u] = ngrow;
         mask(kOpen)[u] = open & ~grow;
@@ -308,10 +239,7 @@ blend_kernel(const float* __restrict__ depth,
         if (mask(kNRing + 1)[i >> 5] & b) s_ndelta[i] = s_delta[i];
       }
     } else {
-      const float one_minus =
-          static_cast<float>(1.0 - static_cast<double>(k - 1) /
-                                       static_cast<double>(radius - 1));
-      const float blend_w = __fmul_rn(scale, one_minus);
+      const float blend_w = blend_weight(k, radius, scale);
       const uint32_t* prev = mask(kRing + (k - 1) % 3);
       const uint32_t* nprev = mask(kNRing + (k - 1) % 3);
       for (int j = tid; j < count; j += kThreads) {
@@ -320,8 +248,10 @@ blend_kernel(const float* __restrict__ depth,
         const int e = list[j];
         const bool ngrow = e >> 15;
         const int i = e & 0x7fff;
-        grow_pixel(ngrow ? nprev : prev, rows, i >> 6, (i >> 5) & 1, i & 31,
-                   ngrow ? s_ndelta : s_delta, s_depth, blend_w);
+        float* vals = ngrow ? s_ndelta : s_delta;
+        grow_to(i, ring_mean(ngrow ? nprev : prev, rows, i >> 6,
+                             (i >> 5) & 1, i & 31, vals),
+                vals, s_depth, blend_w);
       }
     }
     __syncthreads();

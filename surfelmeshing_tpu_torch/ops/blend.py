@@ -1,14 +1,15 @@
-"""Measurement blending: the hand-written CUDA kernel, its wrapper and its
-plain PyTorch version.
+"""Measurement blending: the hand-written CUDA kernels, their wrapper and
+their plain PyTorch version.
 
 `blend_core` is the port of surfelmeshing_tpu/ops/fusion.py::_blend_pallas
 (body `_blend_core`): observation-boundary feathering (reference
 kernels.cu:563-738).  On a CUDA tensor it launches csrc/blend.cu, one
 launch, for radius <= MAX_RADIUS, and csrc/blend_wide.cu, the wide path
-(an init launch and one launch a ring iteration over global maps), for any
-larger radius; on a CPU tensor it runs `blend_core_reference`, a torch
-transcription of `_blend_core` with the same shifts and order of
-operations.
+(ceil((radius-1)/T) launches that each carry T ring iterations in shared
+memory, the first the border iteration and T-1), for any larger radius;
+on a CPU tensor it
+runs `blend_core_reference`, a torch transcription of `_blend_core` with
+the same shifts and order of operations.
 
 The kernel libraries are compiled from csrc/ at first use
 (ops/cuda_build.py).
@@ -34,10 +35,21 @@ from . import cuda_build
 # of shared memory, well inside the 227 KB a block may use.
 MAX_RADIUS = 32
 
-# Scratch planes of H*W int32 words the wide path takes (csrc/blend_wide.cu
-# kPlanes): dist, delta, ndist, ndelta, the target mask and the snapshot of
-# dist and delta read by iteration 256.
-WIDE_SCRATCH_PLANES = 7
+# Scratch planes of H*W int32 words the wide path takes: two sets (read by
+# one chunk launch, written by the other) of dist, ndist, delta, ndelta and
+# depth (csrc/blend_wide.cu, 2 * kSetPlanes).  A word a chunk follows them
+# (the device flags that let a chunk skip when nothing grows).
+WIDE_SCRATCH_PLANES = 10
+
+# Ring iterations the wide path carries a launch (T; its blocks' halo) and
+# the rows of a block's core, chosen from chip_smoke.py's sweep at radius
+# 48 and 640x480 (PERF.md section 6).  csrc/blend_wide.cu takes T in 1 ..
+# WIDE_MAX_CHUNK (its kMaxChunk, which keeps two core columns in a
+# 64-column region) and core rows + 2 T <= 128 (one thread a (row,
+# 32-pixel half) unit of the region).
+WIDE_CHUNK = 16
+WIDE_MAX_CHUNK = 31
+WIDE_CORE_H = 40
 
 
 def _shifted(img: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
@@ -152,15 +164,45 @@ def load_library() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def load_wide_library() -> ctypes.CDLL:
-    """The wide path's library (csrc/blend_wide.cu), built on first use."""
+    """The wide path's library (csrc/blend_wide.cu), built on first use and
+    loaded once; its shared-memory limit is raised here, as for
+    `load_library`."""
     lib = ctypes.CDLL(str(cuda_build.build("blend_wide")))
     lib.blend_wide_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-        ctypes.POINTER(ctypes.c_int)]
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
     lib.blend_wide_launch.restype = ctypes.c_int
+    lib.blend_wide_configure.restype = ctypes.c_int
+    lib.blend_wide_set_planes.restype = ctypes.c_int
+    lib.blend_wide_max_chunk.restype = ctypes.c_int
+    if 2 * lib.blend_wide_set_planes() != WIDE_SCRATCH_PLANES or \
+            lib.blend_wide_max_chunk() != WIDE_MAX_CHUNK:
+        raise RuntimeError("csrc/blend_wide.cu and ops/blend.py disagree on "
+                           "the scratch planes or the largest chunk")
+    err = lib.blend_wide_configure()
+    if err != 0:
+        raise RuntimeError(f"blend_core wide path: cudaFuncSetAttribute "
+                           f"failed: CUDA error {err}")
     return lib
+
+
+def _cuda_maps(name: str, maps, radius: int) -> torch.device:
+    """The maps' CUDA device, after checking what the kernels take."""
+    device = maps[0].device
+    if device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {device}")
+    for m in maps:
+        if m.device != device or m.dtype != torch.float32 or \
+                m.shape != maps[0].shape or m.dim() != 2 or \
+                not m.is_contiguous():
+            raise ValueError(
+                f"{name}: the four maps must be contiguous (H, W) float32 "
+                f"tensors on one CUDA device")
+    if radius < 1:
+        raise ValueError(f"{name}: radius {radius} < 1")
+    return device
 
 
 def blend_core(depth_f: torch.Tensor, supported: torch.Tensor,
@@ -171,51 +213,66 @@ def blend_core(depth_f: torch.Tensor, supported: torch.Tensor,
     CPU tensors run the plain version; CUDA tensors launch the kernels on
     the current stream (no synchronisation) or raise.  Radius 1 ..
     MAX_RADIUS takes the one-launch kernel, counted in
-    `blend_core.launches`; a larger radius takes the wide path, whose
-    calls are counted in `blend_core.wide_launches` and the kernels they
-    enqueue (its init kernel and radius-2 ring kernels, as the launcher
-    reports them) in `blend_core.wide_kernel_launches`.
+    `blend_core.launches`; a larger radius takes `blend_wide`.
     """
     maps = (depth_f, supported, valid, avg)
     if all(m.device.type == "cpu" for m in maps):
-        return blend_core_reference(depth_f, supported, valid, avg,
-                                    radius, scale)
-    device = depth_f.device
-    if device.type != "cuda":
-        raise ValueError(f"blend_core: unsupported device {device}")
-    for m in maps:
-        if m.device != device or m.dtype != torch.float32 or \
-                m.shape != depth_f.shape or m.dim() != 2 or \
-                not m.is_contiguous():
-            raise ValueError(
-                "blend_core: the four maps must be contiguous (H, W) "
-                "float32 tensors on one CUDA device")
-    if radius < 1:
-        raise ValueError(f"blend_core: radius {radius} < 1")
+        return blend_core_reference(*maps, radius, scale)
+    if radius > MAX_RADIUS:
+        return blend_wide(*maps, radius, scale)
+    device = _cuda_maps("blend_core", maps, radius)
     height, width = depth_f.shape
     out = torch.empty_like(depth_f)
-    ptrs = [m.data_ptr() for m in (*maps, out)]
-    wide = radius > MAX_RADIUS
+    with torch.cuda.device(device):
+        err = load_library().blend_core_launch(
+            *[m.data_ptr() for m in (*maps, out)], height, width, radius,
+            float(scale), torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"blend_core kernel launch failed: CUDA error "
+                           f"{err}")
+    blend_core.launches += 1
+    return out
+
+
+def blend_wide(depth_f: torch.Tensor, supported: torch.Tensor,
+               valid: torch.Tensor, avg: torch.Tensor, radius: int,
+               scale: float, chunk: int = WIDE_CHUNK,
+               core_h: int = WIDE_CORE_H) -> torch.Tensor:
+    """`blend_core` by the wide path (csrc/blend_wide.cu) at any radius:
+    `chunk` ring iterations a launch on cores of `core_h` rows.
+    `blend_core` takes it for radius > MAX_RADIUS.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernels on
+    the current stream (no synchronisation) or raise.  Calls are counted
+    in `blend_core.wide_launches`, the kernels they enqueue
+    (ceil((radius-1)/chunk) chunk kernels, as the launcher reports them)
+    in `blend_core.wide_kernel_launches`.
+    """
+    maps = (depth_f, supported, valid, avg)
+    if all(m.device.type == "cpu" for m in maps):
+        return blend_core_reference(*maps, radius, scale)
+    device = _cuda_maps("blend_wide", maps, radius)
+    if not (1 <= chunk <= WIDE_MAX_CHUNK and core_h >= 1 and
+            core_h + 2 * chunk <= 128):
+        raise ValueError(f"blend_wide: chunk {chunk} outside 1 .. "
+                         f"{WIDE_MAX_CHUNK} or core_h {core_h} + 2 chunk "
+                         f"above 128")
+    height, width = depth_f.shape
+    out = torch.empty_like(depth_f)
     kernels = ctypes.c_int(0)
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        if not wide:
-            err = load_library().blend_core_launch(
-                *ptrs, height, width, radius, float(scale), stream)
-        else:
-            scratch = torch.empty((WIDE_SCRATCH_PLANES, height, width),
-                                  dtype=torch.int32, device=device)
-            err = load_wide_library().blend_wide_launch(
-                *ptrs, scratch.data_ptr(), height, width, radius,
-                float(scale), stream, ctypes.byref(kernels))
+        scratch = torch.empty(WIDE_SCRATCH_PLANES * height * width + radius,
+                              dtype=torch.int32, device=device)
+        err = load_wide_library().blend_wide_launch(
+            *[m.data_ptr() for m in (*maps, out)], scratch.data_ptr(),
+            height, width, radius, chunk, core_h, float(scale),
+            torch.cuda.current_stream(device).cuda_stream,
+            ctypes.byref(kernels))
     if err != 0:
-        raise RuntimeError(f"blend_core {'wide' if wide else 'one-launch'} "
-                           f"kernel launch failed: CUDA error {err}")
-    if wide:
-        blend_core.wide_launches += 1
-        blend_core.wide_kernel_launches += kernels.value
-    else:
-        blend_core.launches += 1
+        raise RuntimeError(f"blend_wide kernel launch failed: CUDA error "
+                           f"{err}")
+    blend_core.wide_launches += 1
+    blend_core.wide_kernel_launches += kernels.value
     return out
 
 

@@ -59,6 +59,8 @@ def cached_build(name: str, compiler: str, flags: Sequence[str],
 
 
 def build(name: str) -> Path:
-    """Compile csrc/<name>.cu with nvcc (cached as above)."""
+    """Compile csrc/<name>.cu with nvcc (cached as above; every csrc/*.cuh
+    header is part of the key)."""
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    return cached_build(name, nvcc, NVCC_FLAGS, [CSRC / f"{name}.cu"])
+    return cached_build(name, nvcc, NVCC_FLAGS, [CSRC / f"{name}.cu"],
+                        headers=sorted(CSRC.glob("*.cuh")))

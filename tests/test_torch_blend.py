@@ -9,6 +9,7 @@ contraction, as tests/test_fusion.py::TestBlending states).
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax.numpy as jnp
 from surfelmeshing_tpu.ops import fusion as JF
@@ -239,12 +240,13 @@ def test_in_place_rings_equal_jacobi_rings(radius):
 
 def _blend_wide_emulated(depth_f, supported, valid, avg, radius, scale, seed,
                          snapshot=True, chunks=4):
-    """csrc/blend_wide.cu's order on the plain side: dist / ndist kept as
-    the reference's values in global maps, one pass an iteration updating
-    them in place, its pixels visited in a seeded random order cut into
-    `chunks` groups (each group reads the maps as the groups before it left
-    them).  With `snapshot`, iteration 256 reads dist and delta from a copy
-    taken before it, as the launcher does."""
+    """The in-place order of csrc/blend_wide.cu's float stage on the plain
+    side: dist / ndist kept as the reference's values, one pass an
+    iteration updating the maps in place, its pixels visited in a seeded
+    random order cut into `chunks` groups (each group reads the maps as the
+    groups before it left them).  With `snapshot`, iteration 256 reads
+    dist and delta from a copy taken before it, as the kernel's float stage
+    of 256 reads its snapshot of the deltas."""
     h, w = depth_f.shape
     n = h * w
     scale = float(np.float32(scale))
@@ -326,9 +328,10 @@ def long_ring_maps(h, w, seed):
                                          ("sentinel", 257),
                                          ("long rings", 260)])
 def test_wide_path_order_equals_jacobi_rings(case, radius):
-    """The argument behind csrc/blend_wide.cu on the plain side: global
-    maps of values updated in place in any pixel order, with iteration
-    256's snapshot, give the Jacobi version's result bit for bit."""
+    """The argument behind csrc/blend_wide.cu's in-place float stage on the
+    plain side: maps of values updated in place in any pixel order, with
+    iteration 256's snapshot, give the Jacobi version's result bit for
+    bit."""
     maps = {"random": lambda: random_maps(24, 32, seed=radius),
             "sentinel": lambda: sentinel_maps(24, 32),
             "long rings": lambda: long_ring_maps(4, 300, seed=1)}[case]()
@@ -346,6 +349,166 @@ def test_wide_path_needs_the_snapshot_at_iteration_256():
     maps = [torch.from_numpy(m) for m in long_ring_maps(4, 300, seed=1)]
     want = TB.blend_core_reference(*maps, 260, SCALE)
     got = _blend_wide_emulated(*maps, 260, SCALE, seed=260, snapshot=False)
+    assert not torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _ring_step(s, target, it, radius, scale):
+    """Ring iteration `it` of _blend_core on the region `s` (dist, delta,
+    ndist, ndelta, depth; zero outside it), in place; -> the mask of
+    pixels that grew."""
+    blend_w = float(np.float32(scale) *
+                    np.float32(1.0 - (it - 1.0) / (radius - 1.0)))
+    steps = []
+    for dkey, vkey, opened in (("dist", "delta", s["dist"] == 255.0),
+                               ("ndist", "ndelta",
+                                target & (s["ndist"] == 0.0))):
+        ssum = torch.zeros_like(s["depth"])
+        cnt = torch.zeros_like(s["depth"])
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                at = TB._shifted(s[dkey], dy, dx) == it - 1
+                ssum += torch.where(at, TB._shifted(s[vkey], dy, dx), 0.0)
+                cnt += at.to(torch.float32)
+        steps.append((dkey, vkey, opened & (cnt > 0),
+                      ssum / cnt.clamp_min(1.0)))
+    for dkey, vkey, grow, mean in steps:
+        s[dkey] = torch.where(grow, float(it), s[dkey])
+        s[vkey] = torch.where(grow, mean, s[vkey])
+        s["depth"] = torch.where(grow, s["depth"] + blend_w * mean + 0.5,
+                                 s["depth"])
+    return steps[0][2] | steps[1][2]
+
+
+def _init_state(depth_f, supported, valid, avg, interior, scale):
+    """The border iteration of _blend_core: the reference's dist / ndist
+    values, deltas and snapped depth, and the unsupported targets."""
+    sup_b, val_b = supported > 0.5, valid > 0.5
+    eligible = interior & val_b & sup_b
+    meas = torch.zeros_like(eligible)
+    surf = torch.zeros_like(eligible)
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            nb_valid = TB._shifted(valid, dy, dx) > 0.5
+            meas |= ~nb_valid
+            surf |= nb_valid & ~(TB._shifted(supported, dy, dx) > 0.5)
+    meas &= eligible
+    surf &= eligible
+    delta0 = avg - depth_f / torch.full_like(depth_f, scale)
+    state = dict(dist=torch.where(meas, 1.0, torch.where(eligible, 255.0,
+                                                         0.0)),
+                 delta=torch.where(meas, delta0, 0.0),
+                 ndist=torch.where(surf, 1.0, 0.0),
+                 ndelta=torch.where(surf, delta0, 0.0),
+                 depth=torch.where(meas, torch.floor(scale * avg + 0.5),
+                                   depth_f))
+    return state, interior & val_b & ~sup_b
+
+
+def _blend_chunked(depth_f, supported, valid, avg, radius, scale, chunk,
+                   core=(8, 8), exit_in_256=False):
+    """csrc/blend_wide.cu's schedule on the plain side.  The first chunk
+    runs the border iteration and ring iterations 2 .. chunk, each later
+    chunk `chunk` ring iterations.  A chunk cuts the image into cores of
+    `core` pixels and runs on each core's region (the core and a halo of
+    `chunk`; zero outside the image and the region), from the inputs
+    (first chunk) or the state, and writes back only the core, into a
+    second copy of the state that the next chunk reads.  A region stops
+    once an iteration grows nothing in it; a chunk whose predecessor grew
+    nothing in its last iteration only copies the state.  Neither exit is
+    taken in the chunk that holds iteration 256, unless `exit_in_256`."""
+    h, w = depth_f.shape
+    scale = float(np.float32(scale))
+    ys = torch.arange(h)[:, None]
+    xs = torch.arange(w)[None, :]
+    interior = (xs >= 1) & (ys >= 1) & (xs < w - 1) & (ys < h - 1)
+    ch, cw = core
+    pad = (chunk, chunk, chunk, chunk)
+    padded_inputs = [F.pad(m, pad) for m in (depth_f, supported, valid, avg)]
+    padded_interior = F.pad(interior.to(torch.uint8), pad).bool()
+    bounds = [(2, max(2, min(1 + chunk, radius)))]
+    bounds += [(it0, min(it0 + chunk, radius))
+               for it0 in range(1 + chunk, radius, chunk)]
+    state = target = None
+    grew_last = True
+    for it0, it1 in bounds:
+        may_exit = exit_in_256 or not it0 <= 256 < it1
+        if not grew_last and may_exit:
+            continue
+        if state is None:
+            state = {k: torch.zeros((h, w)) for k in
+                     ("dist", "delta", "ndist", "ndelta", "depth")}
+            target = torch.zeros((h, w), dtype=torch.bool)
+            padded = None
+        else:
+            padded = {k: F.pad(v, pad) for k, v in state.items()}
+            padded_target = F.pad(target.to(torch.uint8), pad).bool()
+        out = {k: v.clone() for k, v in state.items()}
+        out_target = target.clone()
+        grew_last = False
+        for y0 in range(0, h, ch):
+            for x0 in range(0, w, cw):
+                rows = slice(y0, y0 + ch + 2 * chunk)
+                cols = slice(x0, x0 + cw + 2 * chunk)
+                if padded is None:
+                    region, region_target = _init_state(
+                        *[m[rows, cols] for m in padded_inputs],
+                        padded_interior[rows, cols], scale)
+                else:
+                    region = {k: v[rows, cols].clone()
+                              for k, v in padded.items()}
+                    region_target = padded_target[rows, cols]
+                core_of = (slice(chunk, chunk + min(ch, h - y0)),
+                           slice(chunk, chunk + min(cw, w - x0)))
+                if it1 == 2:         # no ring iteration: ring 1 grew last
+                    grew_last |= bool(
+                        ((region["dist"] == 1.0) |
+                         (region["ndist"] == 1.0))[core_of].any())
+                for it in range(it0, it1):
+                    grew = _ring_step(region, region_target, it, radius,
+                                      scale)
+                    grew_last |= it == it1 - 1 and bool(grew[core_of].any())
+                    if may_exit and not grew.any():
+                        break
+                for k, v in region.items():
+                    out[k][y0:y0 + ch, x0:x0 + cw] = v[core_of]
+                out_target[y0:y0 + ch, x0:x0 + cw] = region_target[core_of]
+        state, target = out, out_target
+    return state["depth"]
+
+
+@pytest.mark.parametrize("case,radius,chunk,core", [
+    ("random", 33, 1, (8, 8)), ("random", 33, 8, (8, 8)),
+    ("random", 33, 16, (12, 16)),
+    ("random", 48, 8, (5, 7)), ("random", 48, 16, (8, 8)),
+    # iteration 256 starts a chunk (2), follows a boundary at 255 (11),
+    # ends one (15)
+    ("sentinel", 257, 2, (12, 16)), ("sentinel", 257, 11, (12, 16)),
+    ("sentinel", 257, 15, (7, 9)),
+    ("long rings", 300, 2, (4, 57)), ("long rings", 300, 11, (4, 60)),
+    ("long rings", 300, 15, (3, 70))])
+def test_chunked_schedule_equals_jacobi_rings(case, radius, chunk, core):
+    """csrc/blend_wide.cu's chunks on the plain side (tiles with a halo of
+    T, T iterations a chunk, core-only write-back between chunks, the
+    exits and the iteration-256 rule) give the reference's result bit for
+    bit, on cores that do not divide the image too."""
+    maps = {"random": lambda: random_maps(24, 32, seed=radius),
+            "sentinel": lambda: sentinel_maps(24, 32),
+            "long rings": lambda: long_ring_maps(4, 300, seed=1)}[case]()
+    maps = [torch.from_numpy(m) for m in maps]
+    want = TB.blend_core_reference(*maps, radius, SCALE)
+    got = _blend_chunked(*maps, radius, SCALE, chunk, core)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert (want != maps[0]).sum() > 20
+
+
+def test_an_exit_that_skips_iteration_256_is_wrong():
+    """The sentinel map has no border, so every frontier is empty from the
+    start; iteration 256 still grows every open pixel (+0.5).  An exit
+    taken in the chunk that holds 256 misses that."""
+    maps = [torch.from_numpy(m) for m in sentinel_maps(24, 32)]
+    want = TB.blend_core_reference(*maps, 257, SCALE)
+    got = _blend_chunked(*maps, 257, SCALE, 11, (12, 16), exit_in_256=True)
+    assert torch.equal(got, maps[0])
     assert not torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
@@ -386,11 +549,33 @@ def test_wide_path_matches_plain_version_on_card(cuda_device, case, shape,
     before = core.launches, core.wide_launches, core.wide_kernel_launches
     got = TB.blend_core(*maps, radius, SCALE)
     torch.cuda.synchronize()
-    # An init kernel and one ring kernel for each iteration 2 .. radius-1.
+    # One chunk kernel for the border iteration and each WIDE_CHUNK of the
+    # iterations 1 .. radius-1.
+    chunks = -(-(radius - 1) // TB.WIDE_CHUNK)
     assert (core.launches, core.wide_launches, core.wide_kernel_launches) == \
-        (before[0], before[1] + 1, before[2] + radius - 1)
+        (before[0], before[1] + 1, before[2] + chunks)
     want = TB.blend_core_reference(*maps, radius, SCALE)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk,core_h", [(1, 32), (2, 7), (11, 33),
+                                          (15, 48), (31, 66)])
+def test_wide_path_chunk_shapes_match_plain_version_on_card(
+        cuda_device, chunk, core_h):
+    """Other chunk lengths and core heights than the defaults: iteration
+    256 starting a chunk, after a boundary at 255, ending one."""
+    for maps, radius in ((sentinel_maps(24, 32), 257),
+                         (long_ring_maps(64, 640, seed=1), 300),
+                         (random_maps(100, 77, seed=40), 40)):
+        maps = [torch.from_numpy(m).to(cuda_device) for m in maps]
+        before = TB.blend_core.wide_kernel_launches
+        got = TB.blend_wide(*maps, radius, SCALE, chunk, core_h)
+        torch.cuda.synchronize()
+        assert TB.blend_core.wide_kernel_launches - before == \
+            -(-(radius - 1) // chunk)
+        want = TB.blend_core_reference(*maps, radius, SCALE)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.cuda
@@ -403,3 +588,7 @@ def test_kernel_wrapper_rejects_bad_inputs(cuda_device):
         TB.blend_core(maps[0].double(), *maps[1:], 6, SCALE)
     with pytest.raises(ValueError):
         TB.blend_core(*maps, 0, SCALE)       # _blend_measurements passes >= 1
+    with pytest.raises(ValueError):
+        TB.blend_wide(*maps, 40, SCALE, chunk=32)
+    with pytest.raises(ValueError):
+        TB.blend_wide(*maps, 40, SCALE, chunk=16, core_h=97)
