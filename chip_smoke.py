@@ -93,16 +93,34 @@ Phases, each printing one or more lines:
      6 fused frames of the slice video: the gathered state equals the
      single-device state bit for bit, each rank launched the blending
      kernel once a frame; ms a frame, recorded, not a target;
- 18. fidelity: the fidelity anchor at 160x120 over 50 frames, the port's
+ 18. video: the port's renderer (viewer/renderer.py) on the card against
+     itself on the CPU at 1280x720, pixel for pixel: a seeded scene with
+     every pass (the three mesh size classes and a triangle of extent >=
+     192, NaN vertices, splats, the frustum, two debug line sets) in each
+     colour mode and with normal shading, and app's final state with its
+     mesh; the card's projection against numpy's on the host, float64
+     bit for bit; then the time of a frame of e2e's final state with its
+     last mesh (stream-elapsed between CUDA events, mean of 5 renders
+     after one; device busy from a torch.profiler trace of one more; the
+     idle share between them), its triangle and splat counts and the render's peak device
+     memory, beside the CPU render of app's state (host wall);
+     then the app with --create_video on tests/fixtures/tum_micro at
+     640x480: rc, frame and input-image PNGs, wall beside app's, and one
+     blending launch a fused frame;
+ 19. live-viewer: the app with --live_viewer PORT on tum_micro while a
+     thread fetches /, /mesh and /version: a payload with vertices, the
+     blending kernel launched, and the port free again after run returns;
+ 20. fidelity: the fidelity anchor at 160x120 over 50 frames, the port's
      mesh within 1 mm (mean) of the golden oracle's.  It starts after the
      build: the port fuses on the card and the host-side oracle runs in a
-     worker process while phases 3-17 run; the phase ends last.
-Phases 7-9 and 16-18 print their wall time.
+     worker process while phases 3-19 run; the phase ends last.
+Phases 7-9 and 16-20 print their wall time.
 Then one JSON line describing the kernels (per kernel: launches on its
-path and per main-path frame, for the blending kernel also on the [batch]
-and [shard] paths, max_abs_err against the plain version,
-device / host-inclusive / plain times, the bound with what sets it, and
-the one-call PyTorch yardstick or null) and, last, the result line.
+path and per main-path frame, for the blending kernel also on the [batch],
+[shard], [video] app and [live-viewer] paths, max_abs_err against the
+plain version, device / host-inclusive / plain times, the bound with what
+sets it, and the one-call PyTorch yardstick or null) and, last, the
+result line.
 Any failed check ends the run with a non-zero exit code.
 """
 
@@ -139,6 +157,10 @@ from surfelmeshing_tpu_torch.tools import (fidelity_anchor, gather_probe,
                                            kernel_timing)
 from surfelmeshing_tpu_torch.tools.blend_timing import \
     seeded_maps as random_maps
+from surfelmeshing_tpu_torch.utils.se3 import SE3
+from surfelmeshing_tpu_torch.viewer import renderer as R
+from surfelmeshing_tpu_torch.viewer.probe import (MeshProbe, free_port,
+                                                  port_is_free)
 
 SCALE = 5000.0
 WARMUP_FRAMES = 4
@@ -956,6 +978,7 @@ def run_e2e(device, cfg, label: str) -> dict:
     launches = blend.blend_core.launches
     mesher.drain()
     tris = int(mesher.engine.triangle_count)
+    last_mesh = mesher.peek_output()
     mesher.finish()
     peak = peak_mib()
     split = snapshot_split(pipe, frames[-1],
@@ -982,7 +1005,9 @@ def run_e2e(device, cfg, label: str) -> dict:
     check(rows < max(snaps, 1) * surfels,
           f"{label}: delta snapshots shipped as many rows as full ones")
     return dict(summary=summary, split=split, launches=launches, fused=fused,
-                budgets=budgets, state=live_state(pipe.state))
+                budgets=budgets, state=live_state(pipe.state),
+                view=dict(mesh=last_mesh, camera=pipe.camera,
+                          pose=video.depth_frames[frames[-1]].global_T_frame))
 
 
 def phase_e2e(device) -> dict:
@@ -1085,14 +1110,20 @@ def run_app(device, flags, checkpoint: bool) -> dict:
         ply = (out / "cloud.ply").read_bytes()
         state = load_checkpoint(str(out / "ckpt.npz"), "cpu") \
             if checkpoint else None
-    return dict(rc=rc, seconds=seconds, faces=obj.count("\nf "),
+        frame_pngs = len(list(out.glob("frame*.png")))
+        input_pngs = len(list(out.glob("input_images/*.png")))
+    faces = [line.split()[1:] for line in obj.splitlines()
+             if line.startswith("f ")]
+    return dict(rc=rc, seconds=seconds, faces=len(faces),
+                triangles=np.array(faces, np.int64).reshape(-1, 3) - 1,
                 vertices=obj.count("\nv ") + obj.startswith("v "), ply=ply,
                 points=int(ply.split(b"element vertex ")[1].split(b"\n")[0]),
-                state=state, log=handler.lines)
+                state=state, log=handler.lines, frame_pngs=frame_pngs,
+                input_pngs=input_pngs)
 
 
-def phase_app(device) -> bytes:
-    """The app at 500k capacity; -> its point cloud's bytes."""
+def phase_app(device) -> dict:
+    """The app at 500k capacity; -> its run (point cloud bytes, state)."""
     app = run_app(device, ["--max_surfel_count", "500000"], checkpoint=True)
     state, frame = app["state"]
     count = int(state.surfel_count)
@@ -1105,7 +1136,7 @@ def phase_app(device) -> bytes:
     check(app["points"] > 0, "app: empty PLY")
     check(live == app["points"] == app["vertices"],
           "app: checkpoint, PLY and OBJ disagree on the live surfel count")
-    return app["ply"]
+    return app
 
 
 def phase_app_20m(device, ply: bytes) -> None:
@@ -1120,6 +1151,292 @@ def phase_app_20m(device, ply: bytes) -> None:
     check(tiling == ["active-set tiling: 0 tiles skipped over the run"],
           "app-20m: the log does not report 0 skipped tiles")
     check(app["ply"] == ply, "app-20m: PLY differs from app's")
+
+
+VIDEO_W, VIDEO_H = 1280, 720
+COLOUR_MODES = ("color", "timestamp", "creation", "radius", "normals")
+
+
+def video_scene(seed: int) -> dict:
+    """A seeded scene for a 1280x720 render (772 pixels a metre at 1 m):
+    triangles of each mesh size class (about 2, 12-48 and 48-192 pixels
+    across at 2-4 m) and one of extent >= 192 that no pass draws, NaN
+    vertices, splats with NaN points, two line sets, and per-vertex
+    attributes for the colour modes; host arrays."""
+    rng = np.random.default_rng(seed)
+
+    def triangles(n, size):
+        centres = np.stack([rng.uniform(-1.2, 1.2, n),
+                            rng.uniform(-0.7, 0.7, n),
+                            rng.uniform(2.0, 4.0, n)], 1)
+        return (centres[:, None] + rng.uniform(-size, size, (n, 3, 3))
+                ).reshape(-1, 3)
+
+    vertices = np.concatenate([
+        triangles(3000, 0.004), triangles(300, 0.05), triangles(30, 0.25),
+        [[-6, -4, 2.5], [6, -4, 2.6], [0, 5, 2.4]]]).astype(np.float32)
+    vertices[rng.choice(len(vertices), 50, replace=False)] = np.nan
+    n = len(vertices)
+    splats = np.stack([rng.uniform(-1.3, 1.3, 4000),
+                       rng.uniform(-0.8, 0.8, 4000),
+                       rng.uniform(1.5, 4.5, 4000)], 1).astype(np.float32)
+    splats[rng.choice(4000, 40, replace=False), 0] = np.nan
+    segments = np.stack([vertices[:600], vertices[600:1200]], 1)
+    normals = rng.standard_normal((n, 3)).astype(np.float32)
+    normals /= np.linalg.norm(normals, axis=1, keepdims=True)
+    return dict(
+        vertices=vertices, triangles=np.arange(n).reshape(-1, 3),
+        colors=rng.integers(0, 256, (n, 3)).astype(np.uint8),
+        stamps=rng.integers(0, 40, n).astype(np.int32),
+        creation=rng.integers(0, 40, n).astype(np.int32),
+        radii_sq=rng.uniform(-1e-5, 2e-4, n).astype(np.float32),
+        normals=normals, splats=splats,
+        splat_colors=rng.integers(0, 256, (4000, 3)).astype(np.uint8),
+        red=segments[~np.isnan(segments).any(axis=(1, 2))],
+        blue=np.stack([splats[:500], splats[:500] + 0.05], 1))
+
+
+def scene_renders(scene: dict, device):
+    """The seeded scene on `device` in each colour mode and with normal
+    shading; -> [(label, (H, W, 3) u8 image on the host)]."""
+    t = {k: torch.from_numpy(v).to(device) for k, v in scene.items()}
+    renderer = R.Renderer(VIDEO_W, VIDEO_H, device=device)
+    camera = read_tum_rgbd_dataset(str(FIXTURE), "groundtruth.txt",
+                                   0.05).depth_camera
+    out = []
+    for mode, shading in [(m, False) for m in COLOUR_MODES] + \
+            [("color", True)]:
+        cols = R.surfel_colors(mode, t["colors"], t["stamps"], t["creation"],
+                               t["radii_sq"], t["normals"], 37,
+                               active_window=20)
+        img = renderer.render(
+            SE3(q=[0.03, -0.05, 0.01, 0.998], t=[0.1, 0.05, -0.2]),
+            mesh_vertices=t["vertices"], mesh_colors=cols,
+            mesh_triangles=t["triangles"], triangle_normal_shading=shading,
+            splat_points=t["splats"], splat_colors=t["splat_colors"],
+            splat_half_extent=3.0, frustum_pose=SE3(t=[0.0, 0.0, 1.0]),
+            frustum_camera=camera,
+            line_sets=[(t["red"], (255, 0, 0)), (t["blue"], (0, 0, 255))])
+        out.append((mode + (" + normal shading" if shading else ""),
+                    img.cpu().numpy()))
+    return out
+
+
+def app_view(app: dict, device) -> dict:
+    """app's final state (checkpoint) with its mesh (the OBJ's faces) as
+    the video writer renders it, following the input camera: render
+    arguments on `device` and the view pose."""
+    state, frame = app["state"]
+    count = int(state.surfel_count)
+    positions, colors = F.export_vertices(state)
+    alive = ~torch.isnan(positions[:count, 0])
+    video = read_tum_rgbd_dataset(
+        str(FIXTURE), "groundtruth.txt",
+        SurfelMeshingConfig().max_pose_interpolation_time_extent)
+    pose = video.depth_frames[frame].global_T_frame
+    return dict(pose=pose, args=dict(
+        mesh_vertices=positions[:count][alive].to(device),
+        mesh_colors=colors[:count][alive].to(device),
+        mesh_triangles=torch.from_numpy(app["triangles"]).to(device),
+        splat_points=positions[count - 2000:count].to(device),
+        splat_colors=colors[count - 2000:count].to(device),
+        splat_half_extent=3.0, frustum_pose=pose,
+        frustum_camera=video.depth_camera))
+
+
+def elapsed_ms(render, repeats: int) -> float:
+    """Mean stream time of `render()` between CUDA events around `repeats`
+    calls after one: host dispatch and the renderer's host waits (index
+    bounds, nonzero, boolean masks) included."""
+    render()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(repeats):
+        render()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / repeats
+
+
+def busy_ms(renders: dict) -> dict:
+    """Device busy ms of one call of each named render: the union of the
+    kernel, copy and set intervals in one torch.profiler trace, each
+    render in a range of its name that ends after a synchronisation; None
+    for a render whose range holds no device event.  One trace for all,
+    read from its raw events: each trace and the profiler's own event
+    list are slow to build."""
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for name, render in renders.items():
+            with torch.profiler.record_function(name):
+                render()
+                torch.cuda.synchronize()
+    events = prof.profiler.kineto_results.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    device = [(e.start_ns(), e.start_ns() + e.duration_ns()) for e in events
+              if e.device_type() == cuda and not e.is_user_annotation()
+              and e.name() not in renders]
+    out = {}
+    for name in renders:
+        ranges = [(e.start_ns(), e.start_ns() + e.duration_ns())
+                  for e in events
+                  if e.name() == name and e.device_type() != cuda]
+        spans = sorted(r for r in device
+                       if ranges and ranges[0][0] <= r[0] <= ranges[0][1])
+        busy_ns, reach = 0, -1
+        for lo, hi in spans:
+            busy_ns += max(0, hi - max(lo, reach))
+            reach = max(reach, hi)
+        out[name] = busy_ns / 1e6 if spans else None
+    return out
+
+
+def fmt_busy(busy, elapsed: float) -> str:
+    if busy is None:
+        return "not measured (no device event in its trace range)"
+    return f"{busy:.3f} ms (idle share {1 - busy / elapsed:.3f})"
+
+
+def differing_pixels(a: np.ndarray, b: np.ndarray) -> int:
+    return int((a != b).any(axis=2).sum())
+
+
+def phase_video(device, e2e, app) -> dict:
+    """The renderer on the card against the CPU, its time on e2e's state
+    and the app with --create_video; -> the app's blending launches."""
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    scene = video_scene(9)
+    diffs = [(label, differing_pixels(g, c)) for (label, g), (_, c) in zip(
+        scene_renders(scene, device), scene_renders(scene, cpu))]
+    points = torch.from_numpy(np.concatenate(
+        [scene["vertices"], scene["splats"]])).to(torch.float64)
+    rt = torch.from_numpy(SE3(q=[0.03, -0.05, 0.01, 0.998]).inverse()
+                          .rotation_matrix.T.copy())
+    card = R._fma_chain(points.to(device), rt.to(device)).cpu().numpy()
+    host = points.numpy() @ rt.numpy()
+    proj_diff = int((card.view(np.int64) != host.view(np.int64)).sum())
+    print(f"[video] seeded scene at {VIDEO_W}x{VIDEO_H} "
+          f"({len(scene['triangles'])} triangles in every size class, "
+          f"{len(scene['splats'])} splats, frustum, two line sets): pixels "
+          f"differing between the card and the CPU: " +
+          ", ".join(f"{label} {n}" for label, n in diffs) +
+          f"; projection float64 elements differing {proj_diff} of "
+          f"{host.size} (the card's emulated FMA chain against numpy's "
+          f"`points @ R.T` on the host)")
+    check(all(n == 0 for _, n in diffs), "[video] GPU and CPU images of "
+          "the seeded scene differ")
+
+    renderer = R.Renderer(VIDEO_W, VIDEO_H, device=device)
+    view = app_view(app, device)
+    gpu = renderer.render(view["pose"], **view["args"]).cpu().numpy()
+    renders = {"app": lambda: renderer.render(view["pose"], **view["args"])}
+    elapsed = {"app": elapsed_ms(renders["app"], 3)}
+    cpu_view = app_view(app, cpu)
+    t1 = time.perf_counter()
+    cpu_img = R.Renderer(VIDEO_W, VIDEO_H, device=cpu).render(
+        cpu_view["pose"], **cpu_view["args"]).numpy()
+    cpu_s = time.perf_counter() - t1
+    diff = differing_pixels(gpu, cpu_img)
+    drawn = int((gpu != 255).any(axis=2).sum())
+    print(f"[video] app's final state at {VIDEO_W}x{VIDEO_H} "
+          f"({len(app['triangles'])} triangles, 2000 splats, {drawn} pixels "
+          f"drawn): {diff} pixels differ between the card and the CPU; "
+          f"card {elapsed['app']:.3f} ms stream-elapsed (CUDA events, mean "
+          f"of 3 after 1), CPU "
+          f"render {cpu_s:.3f} s host wall ({torch.get_num_threads()} "
+          f"threads)")
+    check(diff == 0, "[video] GPU and CPU images of app's state differ")
+    check(drawn > 10000, "[video] app's state drew 10000 pixels or fewer")
+
+    v = e2e["view"]
+    _, mesh_surfels, tris = v["mesh"]
+    state = F.state_from_numpy(device=device, **e2e["state"])
+    count = int(state.surfel_count)
+    positions, colors = F.export_vertices(state)
+    mesh = dict(mesh_vertices=positions, mesh_colors=colors,
+                mesh_triangles=torch.from_numpy(tris.astype(np.int64)).to(
+                    device))
+    splats = dict(splat_points=positions[mesh_surfels:],
+                  splat_colors=colors[mesh_surfels:], splat_half_extent=3.0)
+    frustum = dict(frustum_pose=v["pose"], frustum_camera=v["camera"])
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    renders.update(
+        frame=lambda: renderer.render(v["pose"], **mesh, **splats,
+                                      **frustum),
+        mesh=lambda: renderer.render(v["pose"], **mesh),
+        splats=lambda: renderer.render(
+            v["pose"], splat_points=positions, splat_colors=colors,
+            splat_half_extent=3.0))
+    elapsed["frame"] = elapsed_ms(renders["frame"], 5)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    for name in ("mesh", "splats"):
+        elapsed[name] = elapsed_ms(renders[name], 5)
+    busy = busy_ms(renders)
+    print(f"[video] e2e's final state ({count} surfels) with its last mesh "
+          f"at {VIDEO_W}x{VIDEO_H}: {len(tris)} triangles, "
+          f"{count - mesh_surfels} splats (surfels newer than the mesh); "
+          f"{elapsed['frame']:.3f} ms a frame stream-elapsed (CUDA events, "
+          f"mean of 5 after 1); mesh passes alone {elapsed['mesh']:.3f} ms; "
+          f"all {count} surfels as splats alone {elapsed['splats']:.3f} ms; "
+          f"{peak:.1f} MiB peak device memory above the "
+          f"{base / 2 ** 20:.1f} MiB held")
+    print("[video] device busy, one profiled render each (torch.profiler, "
+          "union of device intervals), idle share of its stream-elapsed: "
+          + "; ".join(f"{name} {fmt_busy(busy[name], elapsed[name])}"
+                      for name in renders))
+
+    zero_blend_counts()
+    run = run_app(device, ["--max_surfel_count", "500000", "--create_video"],
+                  checkpoint=False)
+    launches, wide = blend_counts()
+    print(f"[video] app --create_video on tum_micro at 640x480, frames "
+          f"{VIDEO_W}x{VIDEO_H}: rc {run['rc']} in {run['seconds']:.2f} s "
+          f"against [app]'s {app['seconds']:.2f} s without video; "
+          f"{run['frame_pngs']} frame PNGs, {run['input_pngs']} input-image "
+          f"PNGs; {launches} blend launches; PLY byte-identical to [app]'s: "
+          f"{run['ply'] == app['ply']}; phase wall "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(run["frame_pngs"] == launches > 0 and wide == 0,
+          f"[video] {run['frame_pngs']} frames for {launches} blend "
+          f"launches")
+    check(run["input_pngs"] == 2 * (run["frame_pngs"] + 1),
+          "[video] not one color and one depth PNG a played frame")
+    check(run["ply"] == app["ply"], "[video] the PLY differs from [app]'s")
+    return dict(launches=launches)
+
+
+def phase_live_viewer(device) -> dict:
+    """The app with --live_viewer on tum_micro while a thread fetches /,
+    /mesh and /version; -> the run's blending launches."""
+    t0 = time.perf_counter()
+    port = free_port()
+    zero_blend_counts()
+    with MeshProbe(port) as probe:
+        run = run_app(device, ["--max_surfel_count", "500000",
+                               "--live_viewer", str(port)], checkpoint=False)
+    launches, _ = blend_counts()
+    header = probe.header()
+    served = probe.served
+    freed = port_is_free(port)
+    print(f"[live-viewer] app --live_viewer {port} on tum_micro at 640x480: "
+          f"rc {run['rc']} in {run['seconds']:.2f} s; served / "
+          f"({len(served.get('html', b''))} B), /version "
+          f"{served.get('version', b'').decode()}, /mesh version {header[0]} "
+          f"with {header[1]} vertices and {header[2]} triangles; "
+          f"{launches} blend launches; port free after the run: {freed}; "
+          f"phase wall {time.perf_counter() - t0:.1f} s")
+    check(not probe.alive(), "[live-viewer] the probe did not end")
+    check(b"canvas" in served.get("html", b""), "[live-viewer] no page")
+    check(header[1] > 0, "[live-viewer] no vertices served")
+    check(launches > 0, "[live-viewer] the blending kernel was not launched")
+    check(freed, f"[live-viewer] port {port} still bound after the run")
+    return dict(launches=launches)
 
 
 # BASELINE config 5's eight sequences: distinct (scene, trajectory) pairs.
@@ -1272,6 +1589,7 @@ def kernel_entry(name, source, replaces, launches, per_frame, t) -> dict:
         "three_index_select_ms", "l2_read_tb_per_s", "l2_bound_ms",
         "direct_layout_l2_sector_bound_ms", "kernel_launches_per_call",
         "wrapper_calls", "batch_path_launches", "shard_path_launches",
+        "video_path_launches", "live_viewer_path_launches",
         "radius32_device_ms", "sweep", "slice_inputs_device_ms",
         "slice_r48_kernels_per_frame", "gpu_vs_cpu_launches")
         if k in t}
@@ -1307,7 +1625,7 @@ def main() -> int:
 
 
 def run_phases(device, anchor) -> list:
-    """Phases 3-17 and the end of 18; -> the kernels line's entries."""
+    """Phases 3-19 and the end of 20; -> the kernels line's entries."""
     blend_times, wide_times = phase_kernel(device)
     video, seq = synthetic_rgbd_video(SLICE_FRAMES, 640, 480,
                                       noise_sigma=0.002)
@@ -1324,8 +1642,10 @@ def run_phases(device, anchor) -> list:
     gathers = phase_gather(device)
     e2e = phase_e2e(device)
     phase_e2e_20m(device, e2e)
-    ply = phase_app(device)
-    phase_app_20m(device, ply)
+    app = phase_app(device)
+    phase_app_20m(device, app["ply"])
+    video_run = phase_video(device, e2e, app)
+    live_run = phase_live_viewer(device)
     batch_run = phase_batch(device)
     phase_multi_seq(device)
     shard_run = phase_shard(device, video)
@@ -1339,7 +1659,10 @@ def run_phases(device, anchor) -> list:
                             slice_run["launches"] / slice_run["fused"],
                             dict(blend_times,
                                  batch_path_launches=batch_run["launches"],
-                                 shard_path_launches=shard_run["launches"])),
+                                 shard_path_launches=shard_run["launches"],
+                                 video_path_launches=video_run["launches"],
+                                 live_viewer_path_launches=live_run[
+                                     "launches"])),
                kernel_entry("blend_wide", "blend_wide.cu",
                             "surfelmeshing_tpu/ops/fusion.py:1726",
                             wide_slice["kernels"], 0,

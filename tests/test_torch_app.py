@@ -19,14 +19,20 @@ import jax
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from surfelmeshing_tpu.config import config_from_args
 from surfelmeshing_tpu.io.tum import read_tum_rgbd_dataset
 from surfelmeshing_tpu.pipeline import ReconstructionPipeline as JaxPipeline
-from surfelmeshing_tpu_torch.app.main import main
+from surfelmeshing_tpu_torch.app.main import (VideoWriter, _dump_input_images,
+                                              main)
+from surfelmeshing_tpu_torch.io import tum as TT
 from surfelmeshing_tpu_torch.io.checkpoint import load_checkpoint
 from surfelmeshing_tpu_torch.ops import fusion as TF
 from surfelmeshing_tpu_torch.pipeline import ReconstructionPipeline
+from surfelmeshing_tpu_torch.utils.se3 import SE3
+from surfelmeshing_tpu_torch.utils.spline import (read_keyframes,
+                                                  write_keyframes)
 
 from test_torch_pipeline import assert_pipelines_match
 
@@ -93,11 +99,167 @@ def test_app_auto_active_budget(tmp_path, monkeypatch, caplog):
         (tmp_path / "full.ply").read_bytes()
 
 
-@pytest.mark.parametrize("flags", [["--create_video"],
-                                   ["--live_viewer", "8123"]])
-def test_unported_app_options_raise(flags):
-    with pytest.raises(NotImplementedError):
-        main(["--device", "cpu", *FLAGS, *flags, *DATASET])
+VIDEO = ["--create_video", "--render_window_default_width", "160",
+         "--render_window_default_height", "120", "--end_frame", "6"]
+
+
+def _frames(path):
+    return sorted(path.glob("frame*.png"))
+
+
+def _image(path):
+    return np.asarray(Image.open(path))
+
+
+def test_app_writes_video_and_input_images(tmp_path, monkeypatch):
+    """--create_video with the debug line passes writes one frame a fused
+    frame and, by default, each played frame's input color and depth
+    (tests/test_app.py's two video cases, on the port at 160x120)."""
+    monkeypatch.chdir(tmp_path)
+    assert main(["--device", "cpu", *FLAGS, *VIDEO,
+                 "--debug_neighbor_rendering", "--debug_normal_rendering",
+                 *DATASET]) == 0
+    frames = _frames(tmp_path)
+    assert [f.name for f in frames] == [f"frame{i:06d}.png"
+                                        for i in range(4)]
+    assert all(_image(f).shape == (120, 160, 3) for f in frames)
+    assert (_image(frames[-1]) != 255).any(axis=2).sum() > 1000
+    names = sorted(p.name for p in (tmp_path / "input_images").iterdir())
+    assert names == sorted(f"frame{i:06d}_{kind}.png" for i in range(5)
+                           for kind in ("color", "depth"))
+
+
+def test_hide_input_images(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    assert main(["--device", "cpu", *FLAGS, *VIDEO, "--hide_input_images",
+                 *DATASET]) == 0
+    assert len(_frames(tmp_path)) == 4
+    assert not (tmp_path / "input_images").exists()
+
+
+def test_playback_keyframes_drive_the_view(tmp_path, monkeypatch):
+    """--playback_keyframes moves the video's camera along the keyframe
+    spline: with keyframes that back away from the recorded input poses
+    the frames differ from the follow-camera video's, and the last frame
+    shows the scene from the last keyframe (smaller on screen)."""
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "follow").mkdir()
+    monkeypatch.chdir(tmp_path / "follow")
+    assert main(["--device", "cpu", *FLAGS, *VIDEO, "--hide_input_images",
+                 "--record_keyframes", "../recorded.txt", *DATASET]) == 0
+    recorded = read_keyframes(str(tmp_path / "recorded.txt"))
+    assert len(recorded) == 4
+    back = SE3(t=[0.0, 0.0, -1.5])
+    write_keyframes(str(tmp_path / "backed.txt"),
+                    [(i, pose * back) for i, pose in recorded])
+    (tmp_path / "playback").mkdir()
+    monkeypatch.chdir(tmp_path / "playback")
+    assert main(["--device", "cpu", *FLAGS, *VIDEO, "--hide_input_images",
+                 "--playback_keyframes", "../backed.txt", *DATASET]) == 0
+    follow = [_image(f) for f in _frames(tmp_path / "follow")]
+    played = [_image(f) for f in _frames(tmp_path / "playback")]
+    assert len(played) == len(follow) == 4
+    for a, b in zip(follow, played):
+        assert (a != b).any()
+
+    def drawn(img):
+        return int((img != 255).any(axis=2).sum())
+    assert drawn(played[-1]) < drawn(follow[-1])
+
+
+def _jax_state(state: TF.SurfelState):
+    from surfelmeshing_tpu.ops.fusion import SurfelState as JaxState
+    host = TF.state_to_numpy(state)
+    return JaxState(**{k: jax.numpy.asarray(v) for k, v in host.items()})
+
+
+class _Stub:
+    """The few attributes of a pipeline and a mesher that the video
+    writers read."""
+
+    def __init__(self, **kw):
+        self.__dict__.update(kw)
+
+    def surfel_count(self):
+        return self.count
+
+    def peek_output(self):
+        return self.output
+
+
+@pytest.fixture(scope="module")
+def fused_state():
+    """The port's CPU state after four frames of the fixture at 160x120,
+    and the native mesher's triangles of it (a fixed triangle set)."""
+    from surfelmeshing_tpu_torch.meshing.engine import MeshingEngine
+    cfg = config_from_args([*FLAGS, *DATASET])
+    video = TT.read_tum_rgbd_dataset(FIXTURE, "groundtruth.txt",
+                                     cfg.max_pose_interpolation_time_extent)
+    pipe = ReconstructionPipeline(cfg, video.depth_camera, "cpu")
+    for i in range(5):
+        pipe.process_frame(video, i)
+    count = pipe.surfel_count()
+    mesh_surfels = count - 300           # the newest surfels are splats
+    engine = MeshingEngine()
+    engine.integrate(0, *(t[:mesh_surfels].numpy() for t in (
+        TF.smooth_positions(pipe.state), TF.radii_sq(pipe.state),
+        TF.normals(pipe.state), TF.update_stamps(pipe.state))))
+    engine.check_remeshing()
+    engine.triangulate()
+    tris = engine.get_triangles()
+    assert len(tris) > 1000
+    return video, pipe, (4, mesh_surfels, tris)
+
+
+@pytest.mark.parametrize("flags", [
+    [], ["--visualize_last_update_timestamp"],
+    ["--visualize_creation_timestamp"], ["--visualize_radii"],
+    ["--visualize_surfel_normals"],
+    ["--triangle_normal_shading", "--debug_neighbor_rendering",
+     "--debug_normal_rendering", "--splat_half_extent_in_pixels", "1"]],
+    ids=["color", "timestamp", "creation", "radii", "normals",
+         "shading_and_debug_lines"])
+def test_video_writer_matches_jax(tmp_path, monkeypatch, fused_state, flags):
+    """The port's VideoWriter and the JAX package's on the same state (the
+    port's, converted) and the same triangles: equal frames in every
+    --visualize_* mode, and with normal shading and debug lines."""
+    from surfelmeshing_tpu.app.main import VideoWriter as JaxVideoWriter
+    from surfelmeshing_tpu.utils.se3 import SE3 as JaxSE3
+    video, pipe, output = fused_state
+    cfg = config_from_args([*FLAGS, *VIDEO, *flags, *DATASET])
+    pose = video.depth_frames[4].global_T_frame
+    view = pose * SE3(t=[0.05, -0.1, -0.4])
+    mesher = _Stub(output=output)
+    for name, make, stub, to_pose in (
+            ("jax", lambda: JaxVideoWriter(cfg, video.depth_camera),
+             _Stub(state=_jax_state(pipe.state), count=pipe.surfel_count(),
+                   camera=pipe.camera),
+             lambda p: JaxSE3.from_matrix(p.matrix())),
+            ("port", lambda: VideoWriter(cfg, "cpu"),
+             pipe, lambda p: p)):
+        (tmp_path / name).mkdir()
+        monkeypatch.chdir(tmp_path / name)
+        make().render_frame(stub, mesher, to_pose(view), to_pose(pose), 4)
+    want = _image(tmp_path / "jax" / "frame000000.png")
+    got = _image(tmp_path / "port" / "frame000000.png")
+    assert (want != 255).any(axis=2).sum() > 1000
+    np.testing.assert_array_equal(got, want)
+
+
+def test_input_images_match_jax(tmp_path, monkeypatch):
+    from surfelmeshing_tpu.app.main import _dump_input_images as jax_dump
+    cfg = config_from_args([*FLAGS, *DATASET])
+    for name, dump, read in (("jax", jax_dump, read_tum_rgbd_dataset),
+                             ("port", _dump_input_images,
+                              TT.read_tum_rgbd_dataset)):
+        (tmp_path / name).mkdir()
+        monkeypatch.chdir(tmp_path / name)
+        dump(cfg, read(FIXTURE, "groundtruth.txt",
+                       cfg.max_pose_interpolation_time_extent), 3)
+    for kind in ("color", "depth"):
+        path = f"input_images/frame000003_{kind}.png"
+        assert (tmp_path / "port" / path).read_bytes() == \
+            (tmp_path / "jax" / path).read_bytes()
 
 
 def test_profile_dir_writes_a_trace(tmp_path, monkeypatch):

@@ -1,7 +1,8 @@
 """The port's copy of the host layer against the JAX package's original, on
 the same numpy inputs (CPU, small): config parsing, the synthetic video,
 the mesh writers, the TUM reader, SE3 / pose / spline interpolation, the
-native mesher and the mesh-accuracy metric.  The copies started equal;
+native mesher, the mesh-accuracy metric and the live viewer's page and
+snapshot encoding.  The copies started equal;
 these tests keep them answering alike while they live apart.  Everything
 discrete or written to bytes must match exactly; the metrics (numpy on
 both sides, same order of operations) match exactly too."""
@@ -20,6 +21,7 @@ from surfelmeshing_tpu.io import tum as JT
 from surfelmeshing_tpu.meshing.engine import MeshingEngine as JaxEngine
 from surfelmeshing_tpu.utils import se3 as JSE3
 from surfelmeshing_tpu.utils import spline as JSP
+from surfelmeshing_tpu.viewer import live as JLV
 from surfelmeshing_tpu_torch import config as TC
 from surfelmeshing_tpu_torch.eval import mesh_accuracy as TMA
 from surfelmeshing_tpu_torch.io import mesh_io as TIO
@@ -28,6 +30,7 @@ from surfelmeshing_tpu_torch.io import tum as TT
 from surfelmeshing_tpu_torch.meshing.engine import MeshingEngine as PortEngine
 from surfelmeshing_tpu_torch.utils import se3 as TSE3
 from surfelmeshing_tpu_torch.utils import spline as TSP
+from surfelmeshing_tpu_torch.viewer import live as TLV
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "tum_micro")
 DATASET = [FIXTURE, "groundtruth.txt"]
@@ -221,3 +224,18 @@ def test_mesh_accuracy_matches_jax(tmp_path):
     np.testing.assert_array_equal(td, jd)
     np.testing.assert_array_equal(tv, jv)
     np.testing.assert_array_equal(tt, jt)
+
+
+def test_live_viewer_page_is_the_jax_page():
+    with open(TLV._HTML_PATH, "rb") as port, open(JLV._HTML_PATH, "rb") as j:
+        assert port.read() == j.read()
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 3, 5])
+def test_live_viewer_encoding_matches_jax(n):
+    """The /mesh payload for n vertices (colour padding to 4 bytes)."""
+    rng = np.random.default_rng(n)
+    args = (rng.standard_normal((n, 3)), rng.integers(0, 256, (n, 3)),
+            rng.integers(0, max(n, 1), (2 * n, 3)), n // 2, 7)
+    assert TLV.LiveViewerServer._encode(*args) == \
+        JLV.LiveViewerServer._encode(*args)

@@ -61,7 +61,9 @@ def test_port_has_modules():
             "app/main.py", "app/evaluate.py", "eval/ab_matrix.py",
             "tools/gather_probe.py", "tools/fidelity_anchor.py",
             "parallel/__init__.py", "parallel/batch.py", "parallel/shard.py",
-            "parallel/dryrun.py", "app/multi_sequence.py"} <= names
+            "parallel/dryrun.py", "app/multi_sequence.py",
+            "viewer/__init__.py", "viewer/renderer.py", "viewer/live.py",
+            "viewer/live_viewer.html", "tools/make_demo.py"} <= names
     assert "meshing.py" not in names
 
 
