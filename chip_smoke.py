@@ -72,12 +72,22 @@ Phases, each printing one or more lines:
      skipped, every fused frame launches the blending kernel once, and the
      final state equals e2e's bit for bit; then, for the record, 4 frames
      of the full-shape 20M path (budget 0) timed with CUDA events;
- 13. app: the port's application on tests/fixtures/tum_micro at 640x480
+ 13. bench: the port's bench entry points.  `python -m
+     surfelmeshing_tpu_torch.bench` in a process of its own (rc 0, one
+     JSON line with the JAX bench's keys, its stderr diagnostics printed,
+     one blending launch a timed frame, no build in the timed region),
+     then its smoke mode with SM_BENCH_CHECK=1 on the card (the card's
+     state equal to a CPU replay's, count and pack); then in-process
+     through their main(argv) tools/bench_e2e.py (500k, 20m:-1: no build
+     in the timed region, triangles, 0 skipped tiles at 20m:-1) and
+     tools/bench_configs.py (500k, 2m:2m, 20m:2m, arc), each with its
+     blending counts set to 0 just before and one launch a fused frame;
+ 14. app: the port's application on tests/fixtures/tum_micro at 640x480
      with async meshing, exporting mesh, point cloud and checkpoint;
- 14. app-20m: the same at the default capacity with --active_surfel_budget
+ 15. app-20m: the same at the default capacity with --active_surfel_budget
      -1: the log reports 0 skipped tiles and the point cloud is app's,
      byte for byte;
- 15. batch: BASELINE config 5's count, 8 synthetic 640x480 sequences
+ 16. batch: BASELINE config 5's count, 8 synthetic 640x480 sequences
      (distinct scene / trajectory pairs) at 500k capacity each, default
      settings, in lockstep over 12 fused frames through
      app/multi_sequence.py's LockstepBatch (parallel/batch.py): ms a
@@ -85,15 +95,15 @@ Phases, each printing one or more lines:
      device memory; the surfel total equals the sum of the counts, the
      blending kernel ran 8 times a lockstep frame, and sequences 0 and 7
      equal single-sequence ReconstructionPipeline runs bit for bit;
- 16. multi-seq: the multi-sequence app with --device cuda on
+ 17. multi-seq: the multi-sequence app with --device cuda on
      tests/fixtures/tum_micro and a 640x480 synthetic dataset, then on
      each alone: rc 0 and each PLY byte-identical to its one-dataset run;
- 17. shard: one 500k map at 640x480 sharded over 2 gloo ranks spawned on
+ 18. shard: one 500k map at 640x480 sharded over 2 gloo ranks spawned on
      the one card (parallel/shard.py; NCCL refuses two ranks on one GPU),
      6 fused frames of the slice video: the gathered state equals the
      single-device state bit for bit, each rank launched the blending
      kernel once a frame; ms a frame, recorded, not a target;
- 18. video: the port's renderer (viewer/renderer.py) on the card against
+ 19. video: the port's renderer (viewer/renderer.py) on the card against
      itself on the CPU at 1280x720, pixel for pixel: a seeded scene with
      every pass (the three mesh size classes and a triangle of extent >=
      192, NaN vertices, splats, the frustum, two debug line sets) in each
@@ -107,28 +117,31 @@ Phases, each printing one or more lines:
      then the app with --create_video on tests/fixtures/tum_micro at
      640x480: rc, frame and input-image PNGs, wall beside app's, and one
      blending launch a fused frame;
- 19. live-viewer: the app with --live_viewer PORT on tum_micro while a
+ 20. live-viewer: the app with --live_viewer PORT on tum_micro while a
      thread fetches /, /mesh and /version: a payload with vertices, the
      blending kernel launched, and the port free again after run returns;
- 20. fidelity: the fidelity anchor at 160x120 over 50 frames, the port's
+ 21. fidelity: the fidelity anchor at 160x120 over 50 frames, the port's
      mesh within 1 mm (mean) of the golden oracle's.  It starts after the
      build: the port fuses on the card and the host-side oracle runs in a
-     worker process while phases 3-19 run; the phase ends last.
-Phases 7-9 and 16-20 print their wall time.
+     worker process while phases 3-20 run; the phase ends last.
+Phases 7-9, 13 and 17-21 print their wall time.
 Then one JSON line describing the kernels (per kernel: launches on its
 path and per main-path frame, for the blending kernel also on the [batch],
-[shard], [video] app and [live-viewer] paths, max_abs_err against the
-plain version, device / host-inclusive / plain times, the bound with what
-sets it, and the one-call PyTorch yardstick or null) and, last, the
-result line.
+[shard], [video] app, [live-viewer] and [bench] paths, max_abs_err
+against the plain version, device / host-inclusive / plain times, the
+bound with what sets it, and the one-call PyTorch yardstick or null)
+and, last, the result line.
 Any failed check ends the run with a non-zero exit code.
 """
 
+import contextlib
 import dataclasses
+import io
 import json
 import logging
 import multiprocessing
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -153,7 +166,8 @@ from surfelmeshing_tpu_torch.ops import fusion as F
 from surfelmeshing_tpu_torch.ops import gather as G
 from surfelmeshing_tpu_torch.parallel import shard
 from surfelmeshing_tpu_torch.pipeline import ReconstructionPipeline
-from surfelmeshing_tpu_torch.tools import (fidelity_anchor, gather_probe,
+from surfelmeshing_tpu_torch.tools import (bench_configs, bench_e2e,
+                                           fidelity_anchor, gather_probe,
                                            kernel_timing)
 from surfelmeshing_tpu_torch.tools.blend_timing import \
     seeded_maps as random_maps
@@ -169,7 +183,8 @@ KERNEL_SOURCES = ("blend", "blend_wide", "gather", "l2_read")
 # f32 operations/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-FIXTURE = Path(__file__).resolve().parent / "tests" / "fixtures" / "tum_micro"
+REPO = Path(__file__).resolve().parent
+FIXTURE = REPO / "tests" / "fixtures" / "tum_micro"
 
 
 class SmokeFailure(Exception):
@@ -1066,6 +1081,91 @@ def phase_e2e_20m(device, e2e) -> None:
           f"{peak_mib()} MiB peak device memory allocated")
 
 
+def run_bench(smoke: bool) -> tuple:
+    """`python -m surfelmeshing_tpu_torch.bench` in a process of its own
+    (SM_BENCH_SMOKE=1 SM_BENCH_CHECK=1 when `smoke`); -> (its JSON lines,
+    the blending launches it reported for its timed region)."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    if smoke:
+        env.update(SM_BENCH_SMOKE="1", SM_BENCH_CHECK="1")
+    run = subprocess.run(
+        [sys.executable, "-m", "surfelmeshing_tpu_torch.bench", "--device",
+         "cuda"], cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=600)
+    label = "bench smoke" if smoke else "bench"
+    check(run.returncode == 0, f"{label} exited with {run.returncode}: "
+          f"{run.stderr[-2000:]}")
+    lines = [json.loads(line) for line in run.stdout.splitlines()]
+    err = run.stderr.splitlines()
+    for line in lines:
+        print(f"[bench] {label}: {json.dumps(line)}")
+    for line in err:
+        print(f"[bench] {label} stderr: {line}")
+    timed = int(re.search(r"(\d+) timed frames", run.stderr).group(1))
+    launches = int(re.search(r"blend launches in the timed region (\d+)",
+                             run.stderr).group(1))
+    built = int(re.search(r"builds in the timed region (\d+)",
+                          run.stderr).group(1))
+    metric = lines[-1]
+    check(set(metric) == {"metric", "value", "unit", "vs_baseline"},
+          f"{label}: last stdout line {metric}")
+    check(metric["metric"] == ("SMOKE_" if smoke else "") +
+          "fusion_fps_640x480_500k" and metric["value"] > 0,
+          f"{label}: metric line {metric}")
+    check(launches == timed, f"{label}: {launches} blend launches for "
+          f"{timed} timed frames")
+    check(built == 0, f"{label}: {built} builds in the timed region")
+    return lines, launches
+
+
+def bench_tool(main, argv) -> list:
+    """One of the port's bench tools in-process through main(argv), its
+    JSON lines printed with the phase's prefix; blending-kernel counts set
+    to 0 just before and checked just after: one launch a fused frame."""
+    out = io.StringIO()
+    zero_blend_counts()
+    with contextlib.redirect_stdout(out):
+        results = main(["--device", "cuda", *argv])
+    launches = blend.blend_core.launches
+    name = main.__module__.rsplit(".", 1)[1]
+    for line in out.getvalue().splitlines():
+        print(f"[bench] {name}: {line}")
+    fused = sum(r["fused_frames"] for r in results)
+    check(launches == fused == sum(r["blend_launches"] for r in results),
+          f"{name}: {launches} blend launches for {fused} fused frames")
+    return results
+
+
+def phase_bench(device) -> dict:
+    """The port's bench entry points: bench.py (a process of its own, then
+    its smoke mode with the CPU audit), bench_e2e (500k, 20m:-1) and
+    bench_configs (500k, 2m:2m, 20m:2m on the arc trajectory)
+    in-process."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    _, bench_launches = run_bench(smoke=False)
+    smoke, smoke_launches = run_bench(smoke=True)
+    audit = smoke[0]["smoke_check"]
+    check(audit["count_equal"] and audit["pack_equal"],
+          f"bench smoke: the card's state differs from the CPU replay "
+          f"{audit}")
+    e2e = bench_tool(bench_e2e.main, ["500k", "20m:-1"])
+    for r in e2e:
+        check(r["compiles_in_timed_region"] == 0,
+              f"bench_e2e {r['config']}: builds in the timed region")
+        check(r["triangles"] > 0, f"bench_e2e {r['config']}: no triangles")
+    check(e2e[1]["skipped_tiles"] == 0,
+          f"bench_e2e 20m:-1: {e2e[1]['skipped_tiles']} tiles skipped")
+    sweep = bench_tool(bench_configs.main,
+                       ["--trajectory", "arc", "500k", "2m:2m", "20m:2m"])
+    launches = dict(bench=bench_launches, bench_smoke=smoke_launches,
+                    bench_e2e=sum(r["blend_launches"] for r in e2e),
+                    bench_configs=sum(r["blend_launches"] for r in sweep))
+    print(f"[bench] blending-kernel launches, one a fused frame: "
+          f"{launches}; phase wall {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 class _LogLines(logging.Handler):
     """Collects the formatted records of one logger."""
 
@@ -1590,6 +1690,7 @@ def kernel_entry(name, source, replaces, launches, per_frame, t) -> dict:
         "direct_layout_l2_sector_bound_ms", "kernel_launches_per_call",
         "wrapper_calls", "batch_path_launches", "shard_path_launches",
         "video_path_launches", "live_viewer_path_launches",
+        "bench_path_launches",
         "radius32_device_ms", "sweep", "slice_inputs_device_ms",
         "slice_r48_kernels_per_frame", "gpu_vs_cpu_launches")
         if k in t}
@@ -1625,7 +1726,7 @@ def main() -> int:
 
 
 def run_phases(device, anchor) -> list:
-    """Phases 3-19 and the end of 20; -> the kernels line's entries."""
+    """Phases 3-20 and the end of 21; -> the kernels line's entries."""
     blend_times, wide_times = phase_kernel(device)
     video, seq = synthetic_rgbd_video(SLICE_FRAMES, 640, 480,
                                       noise_sigma=0.002)
@@ -1642,6 +1743,7 @@ def run_phases(device, anchor) -> list:
     gathers = phase_gather(device)
     e2e = phase_e2e(device)
     phase_e2e_20m(device, e2e)
+    bench_launches = phase_bench(device)
     app = phase_app(device)
     phase_app_20m(device, app["ply"])
     video_run = phase_video(device, e2e, app)
@@ -1662,7 +1764,8 @@ def run_phases(device, anchor) -> list:
                                  shard_path_launches=shard_run["launches"],
                                  video_path_launches=video_run["launches"],
                                  live_viewer_path_launches=live_run[
-                                     "launches"])),
+                                     "launches"],
+                                 bench_path_launches=bench_launches)),
                kernel_entry("blend_wide", "blend_wide.cu",
                             "surfelmeshing_tpu/ops/fusion.py:1726",
                             wide_slice["kernels"], 0,

@@ -9,6 +9,10 @@ never loaded, and the library is renamed into place atomically, so
 concurrent builds (test workers, chip_smoke's parallel builds) agree.
 Nothing here runs at import time: the CPU tests import every module on
 machines without nvcc.
+
+`builds` counts the libraries this process compiled (cache misses).  The
+bench tools read it around their timed regions, as the JAX benches count
+XLA compiles: a build there invalidates the measurement.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ BUILD_DIR = BUILD_ROOT / "kernels"
 # No --use_fast_math: the kernels' divisions must be IEEE divisions.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+builds = 0
 
 
 def cached_build(name: str, compiler: str, flags: Sequence[str],
@@ -35,6 +40,7 @@ def cached_build(name: str, compiler: str, flags: Sequence[str],
     """Compile `sources` with `compiler flags -o <lib>` unless a library
     built from the same sources, headers and flags is already in
     `build_dir`; returns the library's path."""
+    global builds
     digest = hashlib.sha256(" ".join(flags).encode())
     for p in (*sources, *headers):
         digest.update(Path(p).read_bytes())
@@ -48,6 +54,7 @@ def cached_build(name: str, compiler: str, flags: Sequence[str],
         subprocess.run([compiler, *flags, "-o", tmp, *map(str, sources)],
                        check=True, capture_output=True, text=True)
         os.replace(tmp, path)      # atomic: concurrent builds agree
+        builds += 1
     except subprocess.CalledProcessError as e:
         raise RuntimeError(f"{compiler} failed building "
                            f"{', '.join(map(str, sources))}:\n"
