@@ -62,7 +62,8 @@ Phases, each printing one or more lines:
      denormal rows and out-of-range indices, at the probe's sizes and at
      N = 1, 257 and 4099 (HW 97 and the probe's);
  11. e2e: preprocessing + fusion + asynchronous meshing at 640x480 / 500k
-     over the 40-frame synthetic video (tools/bench_e2e.py's run_config):
+     over the 40-frame synthetic video (tools/bench_e2e.py's run_config;
+     count-sized, as every run without an active-surfel budget):
      8 warm-up frames with a full and a delta snapshot drained, then every
      frame submits a snapshot when the mesher is idle; afterwards one delta
      snapshot is split into its device part and its copies to the host
@@ -71,7 +72,8 @@ Phases, each printing one or more lines:
      active-set budget (tools/bench_e2e.py's `20m:-1`): no tile may be
      skipped, every fused frame launches the blending kernel once, and the
      final state equals e2e's bit for bit; then, for the record, 4 frames
-     of the full-shape 20M path (budget 0) timed with CUDA events;
+     of the full-shape 20M path (budget 0 with a bucket step of the
+     capacity: every pass over 20M rows) timed with CUDA events;
  13. bench: the port's bench entry points.  `python -m
      surfelmeshing_tpu_torch.bench` in a process of its own (rc 0, one
      JSON line with the JAX bench's keys, its stderr diagnostics printed,
@@ -87,6 +89,17 @@ Phases, each printing one or more lines:
  15. app-20m: the same at the default capacity with --active_surfel_budget
      -1: the log reports 0 skipped tiles and the point cloud is app's,
      byte for byte;
+     buckets: count-sized dispatch (budget 0) against full shape (a
+     bucket step of the capacity).  The same 4 20M frames count-sized,
+     their state equal to e2e-20m's full-shape run bit for bit (ms/frame
+     by CUDA events, peak memory, the picks); e2e's loop at 500k full
+     shape, its final state equal to e2e's count-sized one; the app full
+     shape (and --use_shape_buckets, accepted), its point cloud equal to
+     app's byte for byte; bench.py's configuration and first 8 timed
+     frames count-sized and full shape, the frame loop and its drain by
+     CUDA events in turns (count-sized, full, full, count-sized) and
+     each's device busy time from a torch.profiler trace; one blending
+     launch a fused frame in every run;
  16. batch: BASELINE config 5's count, 8 synthetic 640x480 sequences
      (distinct scene / trajectory pairs) at 500k capacity each, default
      settings, in lockstep over 12 fused frames through
@@ -124,10 +137,11 @@ Phases, each printing one or more lines:
      mesh within 1 mm (mean) of the golden oracle's.  It starts after the
      build: the port fuses on the card and the host-side oracle runs in a
      worker process while phases 3-20 run; the phase ends last.
-Phases 7-9, 13 and 17-21 print their wall time.
+Phases 7-9, 13, buckets and 17-21 print their wall time.
 Then one JSON line describing the kernels (per kernel: launches on its
 path and per main-path frame, for the blending kernel also on the [batch],
-[shard], [video] app, [live-viewer] and [bench] paths, max_abs_err
+[shard], [video] app, [live-viewer], [bench] and [buckets] paths,
+max_abs_err
 against the plain version, device / host-inclusive / plain times, the
 bound with what sets it, and the one-call PyTorch yardstick or null)
 and, last, the result line.
@@ -152,6 +166,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from surfelmeshing_tpu_torch import bench
 from surfelmeshing_tpu_torch.app import main as app_main
 from surfelmeshing_tpu_torch.app import multi_sequence as MS
 from surfelmeshing_tpu_torch.config import SurfelMeshingConfig
@@ -1020,22 +1035,63 @@ def run_e2e(device, cfg, label: str) -> dict:
     check(rows < max(snaps, 1) * surfels,
           f"{label}: delta snapshots shipped as many rows as full ones")
     return dict(summary=summary, split=split, launches=launches, fused=fused,
-                budgets=budgets, state=live_state(pipe.state),
+                budgets=budgets, picks=[n for _, n in pipe.bucket_pick_log],
+                state=live_state(pipe.state),
                 view=dict(mesh=last_mesh, camera=pipe.camera,
                           pose=video.depth_frames[frames[-1]].global_T_frame))
 
 
 def phase_e2e(device) -> dict:
-    """e2e at 500k, full shape."""
+    """e2e at 500k, count-sized (budget 0)."""
     run = run_e2e(device, e2e_config(500_000, 0), "e2e")
     print(f"[e2e] 640x480, 500k capacity, async meshing: {run['summary']}")
     print(f"[e2e] after the timed frames, {run['split']} (host clock)")
     return run
 
 
-def phase_e2e_20m(device, e2e) -> None:
+def full_shape(cfg: SurfelMeshingConfig) -> SurfelMeshingConfig:
+    """cfg with every frame over the whole capacity: a bucket step of
+    max_surfel_count."""
+    return dataclasses.replace(cfg, shape_bucket_step=cfg.max_surfel_count)
+
+
+def run_20m(device, full: bool) -> dict:
+    """4 frames of the 20M configuration without a budget after 1
+    warm-up, no meshing, timed with CUDA events: count-sized, or over the
+    whole capacity when `full`.  Blending counts are set to 0 just
+    before."""
+    cfg = e2e_config(SurfelMeshingConfig().max_surfel_count, 0)
+    if full:
+        cfg = full_shape(cfg)
+    video, _ = synthetic_rgbd_video(E2E_FRAMES, 640, 480, noise_sigma=0.002)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_blend_counts()
+    pipe = ReconstructionPipeline(cfg, video.depth_camera, device)
+    lo = cfg.outlier_filtering_frame_count // 2
+    pipe.process_frame(video, lo)                 # warm-up
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    pipe.block_until_ready()
+    t0 = time.perf_counter()
+    start.record()
+    for i in range(lo + 1, lo + 5):
+        pipe.process_frame(video, i)
+    end.record()
+    pipe.block_until_ready()
+    wall = time.perf_counter() - t0
+    launches, wide = blend_counts()
+    return dict(ms=start.elapsed_time(end) / 4, wall_ms=250.0 * wall,
+                peak=peak_mib(), capacity=cfg.max_surfel_count,
+                picks=[n for _, n in pipe.bucket_pick_log],
+                launches=launches + wide, fused=5,
+                count=pipe.surfel_count(), state=live_state(pipe.state))
+
+
+def phase_e2e_20m(device, e2e) -> dict:
     """e2e at the default 20M capacity with the auto active-set budget,
-    held to e2e's final state; then 4 full-shape 20M frames, timed."""
+    held to e2e's final state; then 4 full-shape 20M frames (budget 0, a
+    bucket step of the capacity), timed; -> that full-shape run."""
     capacity = SurfelMeshingConfig().max_surfel_count
     run = run_e2e(device, e2e_config(capacity, -1), "e2e-20m")
     state = run["state"]
@@ -1057,28 +1113,15 @@ def phase_e2e_20m(device, e2e) -> None:
           f"bit-identical to e2e's 500k run ({int(want['surfel_count'])} "
           f"surfels)")
 
-    # For the record: the full-shape path (budget 0) at 20M capacity.
-    cfg = e2e_config(capacity, 0)
-    video, _ = synthetic_rgbd_video(E2E_FRAMES, 640, 480, noise_sigma=0.002)
-    torch.cuda.reset_peak_memory_stats()
-    pipe = ReconstructionPipeline(cfg, video.depth_camera, device)
-    lo = cfg.outlier_filtering_frame_count // 2
-    pipe.process_frame(video, lo)                 # warm-up
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    pipe.block_until_ready()
-    t0 = time.perf_counter()
-    start.record()
-    for i in range(lo + 1, lo + 5):
-        pipe.process_frame(video, i)
-    end.record()
-    pipe.block_until_ready()
-    wall = time.perf_counter() - t0
-    print(f"[e2e-20m] full shape (budget 0) at {capacity} capacity, no "
-          f"meshing: {start.elapsed_time(end) / 4:.3f} ms/frame CUDA events "
-          f"over 4 frames after 1 warm-up (host wall "
-          f"{250.0 * wall:.3f} ms/frame), {pipe.surfel_count()} surfels, "
-          f"{peak_mib()} MiB peak device memory allocated")
+    # For the record: every pass over the 20M rows.
+    full = run_20m(device, full=True)
+    print(f"[e2e-20m] full shape (budget 0, bucket step {full['capacity']}) "
+          f"at {full['capacity']} capacity, "
+          f"no meshing: {full['ms']:.3f} ms/frame CUDA events over 4 frames "
+          f"after 1 warm-up (host wall {full['wall_ms']:.3f} ms/frame), "
+          f"{full['count']} surfels, {full['peak']} MiB peak device memory "
+          f"allocated")
+    return full
 
 
 def run_bench(smoke: bool) -> tuple:
@@ -1251,6 +1294,145 @@ def phase_app_20m(device, ply: bytes) -> None:
     check(tiling == ["active-set tiling: 0 tiles skipped over the run"],
           "app-20m: the log does not report 0 skipped tiles")
     check(app["ply"] == ply, "app-20m: PLY differs from app's")
+
+
+BUSY_FRAMES = 8
+BUSY_MODES = ("count-sized", "full shape")
+
+
+def bench_busy(device) -> tuple:
+    """bench.py's configuration and first BUSY_FRAMES timed frames
+    (surfelmeshing_tpu_torch/bench.py::setup), count-sized and full shape,
+    one pipeline each after bench.py's untimed prefetch and warm-up.  The
+    frames are replayed from a dispatch-state snapshot, restored and
+    prefetched before each timed window as bench.py does, the frame loop
+    and its drain between CUDA events in the order count-sized, full,
+    full, count-sized, then once each under torch.profiler (busy_ms).
+    -> ({mode: ms a frame of each round, device busy ms a frame, picks},
+    fused frames)."""
+    video, cfg, lo, hi, timed = bench.setup(smoke=False)
+    frames = timed[:BUSY_FRAMES]
+    runs, fused = {}, 0
+    for mode in BUSY_MODES:
+        pipe = ReconstructionPipeline(
+            cfg if mode == BUSY_MODES[0] else full_shape(cfg),
+            video.depth_camera, device)
+        pipe.prefetch_inputs(video, lo, hi)
+        for i in range(lo, timed[0]):
+            pipe.process_frame(video, i)
+        fused += timed[0] - lo
+        runs[mode] = dict(pipe=pipe, snap=pipe.snapshot_dispatch_state(),
+                          ms=[])
+
+    def prepare(mode):
+        pipe = runs[mode]["pipe"]
+        pipe.restore_dispatch_state(runs[mode]["snap"])
+        pipe.prefetch_inputs(video, frames[0], hi)
+        torch.cuda.synchronize()
+
+    def replay(mode):
+        pipe = runs[mode]["pipe"]
+        for i in frames:
+            pipe.process_frame(video, i)
+        pipe.drain()
+
+    for mode in BUSY_MODES + BUSY_MODES[::-1]:
+        prepare(mode)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        replay(mode)
+        end.record()
+        torch.cuda.synchronize()
+        runs[mode]["ms"].append(start.elapsed_time(end) / len(frames))
+    for mode in BUSY_MODES:
+        prepare(mode)
+        busy = busy_ms({mode: lambda: replay(mode)})[mode]
+        runs[mode]["busy"] = None if busy is None else busy / len(frames)
+        runs[mode]["picks"] = [
+            n for _, n in runs[mode]["pipe"].bucket_pick_log[-len(frames):]]
+    fused += 3 * len(frames) * len(BUSY_MODES)
+    return runs, fused
+
+
+def phase_buckets(device, e2e, full, app) -> int:
+    """Count-sized dispatch (budget 0) against full shape (a bucket step
+    of the capacity): the 20M frames count-sized against [e2e-20m]'s full-
+    shape ones, [e2e]'s loop (count-sized) full shape, the app full shape
+    against [app]'s point cloud, and bench.py's frames' device-busy time
+    in both; every fused frame launches the blending kernel once.  -> the
+    blending launches of the phase's runs."""
+    t0 = time.perf_counter()
+    run = run_20m(device, full=False)
+    equal = states_equal(run["state"], full["state"])
+    print(f"[buckets] 20M budget 0 count-sized: {run['ms']:.3f} ms/frame "
+          f"CUDA events over 4 frames after 1 warm-up (host wall "
+          f"{run['wall_ms']:.3f}), {run['peak']} MiB peak device memory "
+          f"allocated, picks {run['picks']}; full shape {full['ms']:.3f} "
+          f"ms/frame, {full['peak']} MiB; states bit-identical: {equal}; "
+          f"{run['launches']} blend launches for {run['fused']} fused "
+          f"frames")
+    check(equal, "[buckets] 20M count-sized state differs from the "
+          "full-shape one")
+    check(run["launches"] == run["fused"], f"[buckets] 20M: "
+          f"{run['launches']} blend launches for {run['fused']} frames")
+    check(max(run["picks"]) < run["capacity"],
+          f"[buckets] 20M picks {run['picks']} reach the capacity")
+    launches = run["launches"]
+
+    e2e_f = run_e2e(device, full_shape(e2e_config(500_000, 0)),
+                    "buckets-e2e-full")
+    equal = states_equal(e2e_f["state"], e2e["state"])
+    print(f"[buckets] e2e 500k full shape: {e2e_f['summary']}")
+    print(f"[buckets] e2e picks, count-sized {e2e['picks']}, full shape "
+          f"{sorted(set(e2e_f['picks']))}; final state bit-identical to "
+          f"[e2e]'s: {equal}; {e2e_f['launches']} blend launches for "
+          f"{e2e_f['fused']} fused frames")
+    check(equal, "[buckets] e2e full-shape state differs from [e2e]'s")
+    check(e2e_f["launches"] == e2e_f["fused"],
+          f"[buckets] e2e: {e2e_f['launches']} blend launches for "
+          f"{e2e_f['fused']} fused frames")
+    check(max(e2e["picks"]) < 500_000,
+          f"[buckets] [e2e]'s picks {e2e['picks']} reach the capacity")
+    launches += e2e_f["launches"]
+
+    zero_blend_counts()
+    run_f = run_app(device, ["--max_surfel_count", "500000",
+                             "--shape_bucket_step", "500000",
+                             "--use_shape_buckets"], checkpoint=False)
+    app_launches, wide = blend_counts()
+    used = [[line for line in r["log"] if "shape buckets used" in line]
+            for r in (app, run_f)]
+    fused = int(re.search(r"integration: total \S+\s+count (\d+)",
+                          "\n".join(run_f["log"])).group(1))
+    print(f"[buckets] app full shape (--shape_bucket_step 500000; "
+          f"--use_shape_buckets accepted) on tum_micro: rc {run_f['rc']} in "
+          f"{run_f['seconds']:.2f} s; {used[1]}; [app]'s {used[0]}; PLY "
+          f"byte-identical to [app]'s: {run_f['ply'] == app['ply']}; "
+          f"{app_launches} blend launches for {fused} fused frames")
+    check(run_f["ply"] == app["ply"], "[buckets] app PLY differs from "
+          "[app]'s")
+    check(used[1] == ["shape buckets used: [500000]"] and len(used[0]) == 1,
+          "[buckets] app bucket log")
+    check(app_launches == fused and wide == 0, f"[buckets] app: "
+          f"{app_launches} blend launches for {fused} fused frames")
+    launches += app_launches
+
+    zero_blend_counts()
+    busy, fused = bench_busy(device)
+    traced, _ = blend_counts()
+    for (mode, b), rounds in zip(busy.items(), ("1 and 4", "2 and 3")):
+        ms = sum(b["ms"]) / len(b["ms"])
+        print(f"[buckets] bench.py frames, {mode}: "
+              f"{' / '.join(f'{x:.3f}' for x in b['ms'])} ms/frame CUDA "
+              f"events over the frame loop and its drain (rounds {rounds} "
+              f"of 4), device busy {fmt_busy(b['busy'], ms)} a frame over "
+              f"{BUSY_FRAMES} timed frames; picks {b['picks']}")
+    check(traced == fused, f"[buckets] bench frames: {traced} blend "
+          f"launches for {fused} fused frames")
+    launches += traced
+    print(f"[buckets] phase wall {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 VIDEO_W, VIDEO_H = 1280, 720
@@ -1690,7 +1872,7 @@ def kernel_entry(name, source, replaces, launches, per_frame, t) -> dict:
         "direct_layout_l2_sector_bound_ms", "kernel_launches_per_call",
         "wrapper_calls", "batch_path_launches", "shard_path_launches",
         "video_path_launches", "live_viewer_path_launches",
-        "bench_path_launches",
+        "bench_path_launches", "buckets_path_launches",
         "radius32_device_ms", "sweep", "slice_inputs_device_ms",
         "slice_r48_kernels_per_frame", "gpu_vs_cpu_launches")
         if k in t}
@@ -1742,10 +1924,11 @@ def run_phases(device, anchor) -> list:
     phase_ab(device)
     gathers = phase_gather(device)
     e2e = phase_e2e(device)
-    phase_e2e_20m(device, e2e)
+    full_20m = phase_e2e_20m(device, e2e)
     bench_launches = phase_bench(device)
     app = phase_app(device)
     phase_app_20m(device, app["ply"])
+    buckets_launches = phase_buckets(device, e2e, full_20m, app)
     video_run = phase_video(device, e2e, app)
     live_run = phase_live_viewer(device)
     batch_run = phase_batch(device)
@@ -1765,7 +1948,8 @@ def run_phases(device, anchor) -> list:
                                  video_path_launches=video_run["launches"],
                                  live_viewer_path_launches=live_run[
                                      "launches"],
-                                 bench_path_launches=bench_launches)),
+                                 bench_path_launches=bench_launches,
+                                 buckets_path_launches=buckets_launches)),
                kernel_entry("blend_wide", "blend_wide.cu",
                             "surfelmeshing_tpu/ops/fusion.py:1726",
                             wide_slice["kernels"], 0,

@@ -603,6 +603,9 @@ def _run_loop(cfg, video, pipe, mesher, resume_frame, playback_path,
         log("active-set tiling: %d tiles skipped over the run%s", skipped,
             " — stale surfels / duplicate creations possible; raise "
             "--active_surfel_budget" if skipped else "")
+    if not cfg.active_surfel_budget:
+        logger.info("shape buckets used: %s",
+                    sorted({n for _, n in pipe.bucket_pick_log}))
     logger.info("%s", pipe.timing.report())
 
     # Post-processing terminal controls (main.cc:1550: show_result &&

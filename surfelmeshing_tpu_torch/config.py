@@ -108,14 +108,16 @@ class SurfelMeshingConfig:
     profile_dir: Optional[str] = None   # jax.profiler trace output (TPU-side
                                         # analog of the reference's cudaEvent
                                         # stage timing, main.cc:765-796)
-    # Compile the fusion step per fixed-step surfel-count bucket so its cost
-    # tracks the live map size instead of max_surfel_count.  Worth it on
-    # locally-attached TPUs; each bucket costs one (cacheable) compile.
+    # Count-sized fusion in the JAX package (its per-surfel passes over a
+    # fixed-step surfel-count bucket).  Accepted for the JAX package's
+    # command lines; this port runs every frame count-sized unless an
+    # active-surfel budget is set, whatever its value (the reference's
+    # count-sized launches, cuda_surfel_reconstruction.cc:131-140).
     use_shape_buckets: bool = False
-    # Shape-bucket ladder step in surfel rows: the bucketed fusion program
-    # runs over the smallest multiple of this step above the conservative
-    # count bound.  Smaller steps track the live count tighter; each
-    # distinct bucket costs one (cacheable) compile.
+    # Shape-bucket ladder step in surfel rows: a count-sized frame runs
+    # over the smallest multiple of this step above the conservative count
+    # bound.  Smaller steps track the live count tighter; a step of
+    # max_surfel_count runs every frame over the whole capacity.
     shape_bucket_step: int = 65_536
     # Per-frame surfel creation budget (FusionParams.max_creations_per_frame):
     # creations beyond it are dropped and re-attempted next frame, keeping
@@ -128,12 +130,11 @@ class SurfelMeshingConfig:
     # Tightens the bucket pick by ~1 ladder step once growth settles below
     # the budget.  If a growth burst outruns the bound, the excess creations
     # defer to the next frame (the same drop-and-retry semantics the static
-    # budget already has) and the estimator catches up exponentially; while
-    # a burst saturates a bucket, deferred creations tick
-    # state.overflow_count (indistinguishable on-device from capacity
-    # overflow), so combine with --abort_on_surfel_overflow with care.
-    # 0 = off (the bound is exact: creations can never defer below capacity
-    # and bucketed results stay bit-exact vs full shapes).
+    # budget already has) and the estimator catches up exponentially.
+    # Deferred creations are not counted in state.overflow_count, which
+    # counts only creations dropped at max_surfel_count (the JAX package
+    # counts both).  0 = off (the bound is exact: creations can never defer
+    # below capacity and bucketed results stay bit-exact vs full shapes).
     adaptive_creation_bound: float = 0.0
     # Maximum dispatches (frames or frame chunks) in flight before blocking
     # on the oldest count readback.  Bounds BOTH the host run-ahead and the
@@ -162,15 +163,11 @@ class SurfelMeshingConfig:
     # kernels.cu:77-87).  0 = off.  Rounds max_surfel_count up to a tile
     # multiple.  TPU-specific flag with no reference equivalent.
     active_surfel_budget: int = 0
-    # Dispatch this many consecutive frames per device launch (a lax.scan
-    # whose body IS the per-frame preprocess+fusion step — identical math,
-    # one RPC).  Each host->device launch costs fixed dispatch latency;
-    # on tunneled/remote TPUs that latency dominates once the device step
-    # is fast, and chunking amortizes it frame_chunk-fold.  The pipeline
-    # defers frames lazily and flushes on any state read (meshing snapshot,
-    # stats, viewer, export), so interactive consumers still see fresh
-    # state — at chunk granularity.  1 = off (every frame its own launch).
-    # TPU-specific throughput flag with no reference equivalent.
+    # Frames per device launch in the JAX package (a lax.scan over the
+    # per-frame step, amortizing a remote TPU's dispatch latency).  Accepted
+    # for the JAX package's command lines; this port dispatches one frame at
+    # a time whatever its value (its counterpart would be a CUDA graph over
+    # K frames).  TPU-specific flag with no reference equivalent.
     frame_chunk: int = 1
 
     # Live browser viewer (headless analog of the reference's interactive
@@ -332,12 +329,14 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="always ship FULL surfel snapshots to the meshing "
                         "engine instead of changed rows only")
     p.add_argument("--use_shape_buckets", action="store_true",
-                   help="compile the fusion step per fixed-step surfel-count "
-                        "bucket (TPU-specific; no reference equivalent)")
+                   help="count-sized fusion in the JAX package; "
+                        "accepted, and this port runs count-sized "
+                        "whenever no active-surfel budget is set")
     p.add_argument("--shape_bucket_step", type=int,
                    default=d.shape_bucket_step,
-                   help="shape-bucket ladder step in surfel rows "
-                        "(TPU-specific; no reference equivalent)")
+                   help="shape-bucket ladder step in surfel rows; "
+                        "max_surfel_count runs every frame over the whole "
+                        "capacity (no reference equivalent)")
     p.add_argument("--max_creations_per_frame", type=int,
                    default=d.max_creations_per_frame,
                    help="per-frame surfel creation budget; overflowing "
@@ -361,12 +360,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "a power-of-2 ladder (TPU-specific; no reference "
                         "equivalent)")
     p.add_argument("--frame_chunk", type=int, default=d.frame_chunk,
-                   help="dispatch N consecutive frames per device launch "
-                        "(lax.scan; identical math) to amortize per-launch "
-                        "dispatch latency on remote/tunneled TPUs; state "
-                        "reads flush pending frames, so snapshots/stats see "
-                        "fresh state at chunk granularity (TPU-specific; "
-                        "no reference equivalent)")
+                   help="frames per device launch in the JAX package; "
+                        "accepted, and this port dispatches one frame at "
+                        "a time (TPU-specific; no reference equivalent)")
     p.add_argument("--live_viewer", type=int, default=0, metavar="PORT",
                    help="serve the live WebGL viewer on this port (0=off)")
     p.add_argument("--save_checkpoint", type=str, default=None,

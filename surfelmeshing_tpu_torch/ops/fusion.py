@@ -9,11 +9,15 @@ The port follows the JAX package's default single-device semantics in the
 form its golden oracle states (tests/golden_fusion.py): the per-pixel maps
 are built with order-independent scatter reductions (amin, integer add), so
 they are deterministic; the supporter and conflictor races of the
-reference are resolved by the min-index rule.  The per-surfel phases run
-over the whole capacity, masked by `surfel_count`, which stays on the
-device: a frame needs no host synchronisation.  With an active-surfel
-budget they run instead over a working set of whole tiles (the JAX
-package's active-set tiling, `_integrate_tiled`).
+reference are resolved by the min-index rule.  integrate_frame runs the
+per-surfel phases over the whole capacity, masked by `surfel_count`,
+which stays on the device: a frame needs no host synchronisation.  With
+an active-surfel budget they run instead over a working set of whole
+tiles (the JAX package's active-set tiling, `_integrate_tiled`).
+integrate_frame_bucketed runs them over the first n_eff rows only, the
+reference's count-sized launches; the pipeline picks n_eff from a bound
+on the surfel count whenever no active-surfel budget is set
+(pipeline.py).
 
 State layout is the JAX package's: one packed (N, PACK_WIDTH) f32 matrix
 whose int32 columns (STAMP, CREATION) ride in f32 lanes as bit patterns
@@ -446,6 +450,56 @@ def integrate_frame(
     return _integrate_body(*args)
 
 
+def integrate_frame_bucketed(
+    state: SurfelState,
+    depth: torch.Tensor,
+    normals_xy: torch.Tensor,
+    radius_img: torch.Tensor,
+    color: torch.Tensor,
+    global_T_local: torch.Tensor,
+    local_T_global: torch.Tensor,
+    frame_index: int,
+    params: FusionParams,
+    n_eff: int,
+    taps: Optional[dict] = None,
+    stages: Optional[StageTimer] = None,
+) -> SurfelState:
+    """integrate_frame over only the first n_eff surfel rows (the JAX
+    package's integrate_frame_bucketed): the reference's count-sized
+    kernel grids, cuda_surfel_reconstruction.cc:131-140, where every
+    kernel launches over surfels_size, not capacity.
+
+    The caller picks n_eff >= surfel_count + the frame's creations
+    (pipeline.shape_bucket_for); capacity tests inside the step then see
+    n_eff, so creations that do not fit under it are deferred to the next
+    frame, as in the JAX package.  overflow_count counts only creations
+    dropped at the capacity; the JAX function counts the deferred ones
+    too (ROADMAP queue 3 #8).  The rows are written back into the input's
+    tensors by copy_: the input state is consumed (its pack, neighbors
+    and nbr_dist hold the new rows, its counters are stale), the
+    counterpart of the JAX function's donated state.  n_eff >= capacity
+    runs integrate_frame instead, so tiling still applies, and leaves the
+    input unmodified.  The write-back falls in no `stages` column.
+    """
+    n = state.pack.shape[0]
+    if n_eff >= n:
+        return integrate_frame(state, depth, normals_xy, radius_img, color,
+                               global_T_local, local_T_global, frame_index,
+                               params, taps, stages)
+    rows = (state.pack[:n_eff], state.neighbors[:, :n_eff],
+            state.nbr_dist[:, :n_eff])
+    sub = dataclasses.replace(state, pack=rows[0], neighbors=rows[1],
+                              nbr_dist=rows[2])
+    out = _integrate_body(sub, depth, normals_xy, radius_img, color,
+                          global_T_local, local_T_global, frame_index,
+                          params, taps, stages, capacity=n)
+    for dst, src in zip(rows, (out.pack, out.neighbors, out.nbr_dist)):
+        dst.copy_(src)
+    return dataclasses.replace(out, pack=state.pack,
+                               neighbors=state.neighbors,
+                               nbr_dist=state.nbr_dist)
+
+
 class _Tiling(NamedTuple):
     """Working-set context of the tiled path (the JAX package's _Tiling).
 
@@ -609,11 +663,14 @@ def _integrate_body(state, depth, normals_xy, radius_img, color,
                     global_T_local, local_T_global, frame_index, params,
                     taps, stages=None,
                     tiling: Optional[_Tiling] = None, *,
-                    shard: Optional[_Sharding] = None) -> SurfelState:
+                    shard: Optional[_Sharding] = None,
+                    capacity: Optional[int] = None) -> SurfelState:
     """The 8 phases over the state's rows: the whole capacity, the working
-    set of the tiled path (`tiling`) or this rank's rows of a map sharded
-    over the surfel axis (`shard`).  `stages` is called at the JAX
-    package's stage boundaries (its _StageScopes calls)."""
+    set of the tiled path (`tiling`), this rank's rows of a map sharded
+    over the surfel axis (`shard`) or the first rows of a map of
+    `capacity` rows (integrate_frame_bucketed; only overflow_count reads
+    it).  `stages` is called at the JAX package's stage boundaries (its
+    _StageScopes calls)."""
     def tap(name, value):
         if taps is not None:
             taps[name] = value
@@ -979,7 +1036,7 @@ def _integrate_body(state, depth, normals_xy, radius_img, color,
         _create_new_surfels(params, depth, supporting_surfels, conflict_free,
                             img, sup_shift, pack, neighbors, nbr_dist,
                             state.surfel_count, state.overflow_count,
-                            frame_index, idx, gpack)
+                            frame_index, idx, gpack, capacity)
     tap("pack_after_create", pack)
     tap("neighbors_after_create", neighbors)
     tap("surfel_count_after_create", surfel_count)
@@ -1123,7 +1180,7 @@ def _update_neighbors(params, idx, active, lx, ly, z, px, py, pack,
 def _create_new_surfels(params, depth, supporting_surfels, conflict_free,
                         img, sup_shift, pack, neighbors, nbr_dist,
                         surfel_count, overflow_count, frame_index, idx,
-                        gpack):
+                        gpack, capacity=None):
     """Append a surfel for every unexplained valid depth pixel
     (kernels.cu:90-271).  Flagged pixels are compacted by a cumsum in
     row-major pixel order (the reference's DeviceScan::ExclusiveSum,
@@ -1131,7 +1188,9 @@ def _create_new_surfels(params, depth, supporting_surfels, conflict_free,
     after surfel_count; the rest of the frame's work runs over the
     creation budget, not the image.  Capacity tests use the full capacity
     and supporter rows are read by global index from `gpack`; new rows
-    land in the rows of `pack` whose global index `idx` is theirs."""
+    land in the rows of `pack` whose global index `idx` is theirs.
+    `capacity` (default: gpack's rows) is the map's, for overflow_count
+    only: creations past gpack's rows but under it are deferred."""
     h, w = params.height, params.width
     hw = h * w
     n = gpack.shape[0]       # full capacity (pack may be a working set)
@@ -1239,8 +1298,10 @@ def _create_new_surfels(params, depth, supporting_surfels, conflict_free,
     neighbors = torch.where(take[None, :], nbrs_c[:, jc], neighbors)
     nbr_dist = torch.where(take[None, :], dists_c[:, jc], nbr_dist)
 
-    # Overflow counts only capacity-dropped creations; budget-deferred ones
-    # retry next frame.
+    # Overflow counts only capacity-dropped creations; budget- and
+    # bucket-deferred ones retry next frame.
+    if capacity is not None:
+        free = (capacity - surfel_count).clamp_min(0)
     capacity_short = (torch.minimum(total, _scalar(c_budget, dev)) - free) \
         .clamp_min(0)
     return (pack, neighbors, nbr_dist, surfel_count + created,

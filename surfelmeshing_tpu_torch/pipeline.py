@@ -3,19 +3,39 @@
 Counterpart of surfelmeshing_tpu/pipeline.py's per-frame step: keeps the
 resident window of depth frames for outlier filtering, runs preprocessing
 and fusion on the device, ships meshing snapshots (full, then changed rows
-only), tracks per-stage host timings and exports results.  The JAX
-package's dispatch machinery (shape buckets, chunked scans, deferral,
-precompiles, the delta-row bucket) has no counterpart: torch runs each
-frame eagerly, and the math is the same, so config.frame_chunk and
-use_shape_buckets are ignored.
+only), tracks per-stage host timings and exports results.  Torch runs
+each frame eagerly, one dispatch a frame: config.frame_chunk is accepted
+and changes nothing, since it only sets how many frames the JAX package
+puts into one launch (its counterpart, a CUDA graph over K frames, is not
+built).  Of the JAX package's dispatch machinery the precompiles
+(precompile_shape_buckets, set_allowed_buckets, shape_bucket_ladder) and
+the delta-row bucket have no counterpart: nothing here is compiled per
+shape.
+
+Without an active-surfel budget every frame is count-sized, the
+reference's launches over surfels_size (cuda_surfel_reconstruction.cc:
+131-140) and the JAX package's --use_shape_buckets dispatch: it runs
+fusion.integrate_frame_bucketed over n_eff rows, the smallest multiple of
+shape_bucket_step at or above a bound on the surfel count (_count_bound:
+the last confirmed count plus a creation charge per frame dispatched
+since; adaptive_creation_bound tightens the charge).  With the exact
+bound (adaptive_creation_bound 0) the result is the full-shape one bit
+for bit; a shape_bucket_step of max_surfel_count runs every frame over
+the whole capacity.  config.use_shape_buckets is accepted and changes
+nothing.  bucket_pick_log records (frames, n_eff) for every fused frame.
+The bucketed step writes its rows into the map's tensors in place (the JAX
+package donates the map), so a caller that keeps a map across frames
+copies it, as snapshot_dispatch_state does.
 
 Active-set tiling (config.active_surfel_budget) is the JAX package's:
 a budget N > 0 is passed to integrate_frame, and -1 sizes each frame's
-budget from the lagged visible-tile demand (_auto_budget).  That demand
-and the surfel count reach the host through non-blocking copies into
-pinned memory, one per frame, consumed once their CUDA event has fired;
-the frame loop waits only while more than max_inflight_dispatches - 1
-are outstanding, the JAX package's throttle.
+budget from the lagged visible-tile demand (_auto_budget).  The bucket
+and auto-budget policies read the surfel count and that demand through
+non-blocking copies into pinned memory, one per frame, consumed once
+their CUDA event has fired; the frame loop waits only while more than
+max_inflight_dispatches - 1 are outstanding, the JAX package's throttle.
+Assigning `state` (a loaded checkpoint) restarts both from the new map's
+count.
 
 Stage timings are host times around eager calls that return before the
 device finishes; a snapshot reads the device and so includes the wait for
@@ -29,8 +49,7 @@ The JAX pipeline's driver support for the bench tools is carried:
 prefetch_inputs stages a frame range's inputs on the device ahead of a
 timed loop, drain is a dispatch barrier, and snapshot_dispatch_state /
 restore_dispatch_state let a bench re-run its timed region from a known
-point.  Its shape-bucket precompiles (precompile_shape_buckets,
-set_allowed_buckets) are not: nothing here is compiled per shape.
+point.
 """
 
 from __future__ import annotations
@@ -52,7 +71,7 @@ from .io.tum import RGBDVideo
 from .ops import preprocess as pp
 from .ops.fusion import (FusionParams, StageTimer, SurfelState,
                          create_surfel_state, export_vertices,
-                         integrate_frame, meshing_snapshot,
+                         integrate_frame_bucketed, meshing_snapshot,
                          meshing_snapshot_delta, normals)
 from .utils.camera import PinholeCamera
 from .utils.timing import Timing, format_frame_timings_line
@@ -149,7 +168,8 @@ class ReconstructionPipeline:
             # Tiling needs a tile-aligned capacity; round up.
             ts = self.fusion_params.tile_size
             capacity = (capacity + ts - 1) // ts * ts
-        self.state: SurfelState = create_surfel_state(capacity, self.device)
+        self._state: SurfelState = create_surfel_state(capacity,
+                                                       self.device)
         self._log_device_memory()
         self.timing = Timing()
         self.timings_log_lines = []
@@ -164,16 +184,36 @@ class ReconstructionPipeline:
         self._last_snap_frame: Optional[int] = None
         self.snapshot_rows_shipped = 0
         self.snapshot_count = 0
-        # Auto active-set budget: the last confirmed surfel count and tile
-        # demand, the frames dispatched since, the FIFO of in-flight
-        # readbacks (host tensor, CUDA event or None) and recent per-frame
-        # growth samples (for adaptive_creation_bound).
+        # Shape buckets and the auto active-set budget: the last confirmed
+        # surfel count and tile demand, the frames dispatched since, the
+        # FIFO of in-flight readbacks (host tensor, CUDA event or None) and
+        # recent per-frame growth samples (for adaptive_creation_bound).
         self._confirmed_count = 0
         self._lagged_active_tiles = 0
         self._unconfirmed_frames = 0
         self._pending_counts = []
         self._growth_window = []
         self._current_budget = config.active_surfel_budget
+        # (frames, n_eff) of every fused frame.
+        self.bucket_pick_log = []
+
+    @property
+    def state(self) -> SurfelState:
+        """The surfel map.  A bucketed frame writes its rows into these
+        tensors in place."""
+        return self._state
+
+    @state.setter
+    def state(self, value: SurfelState) -> None:
+        """Replace the map (a loaded checkpoint, regularize_only): the
+        dispatch policy restarts from the new map's surfel count and tile
+        demand, read once here, and drops the old map's readbacks."""
+        self._pending_counts = []
+        self._unconfirmed_frames = 0
+        self._growth_window = []
+        self._confirmed_count, self._lagged_active_tiles = torch.stack(
+            [value.surfel_count, value.active_tile_count]).tolist()
+        self._state = value
 
     def _log_device_memory(self) -> None:
         """Device memory report at init (cudaMemGetInfo, main.cc:859-869)."""
@@ -207,7 +247,7 @@ class ReconstructionPipeline:
                       taps: Optional[dict] = None) -> Optional[FrameResult]:
         """Preprocess and fuse one frame; None for frames lacking a full
         outlier window (main.cc:986-992).  `taps` is passed to
-        integrate_frame."""
+        integrate_frame_bucketed."""
         cfg = self.config
         half_window = cfg.outlier_filtering_frame_count // 2
         for idx in range(max(0, frame_index - half_window),
@@ -237,9 +277,10 @@ class ReconstructionPipeline:
         t1 = time.perf_counter()
         stages = StageTimer(self.device) \
             if cfg.log_timings and cfg.log_timings_staged else None
-        self.state = integrate_frame(
-            self.state, d, nrm, rad, color, t_gl, t_lg, frame_index,
-            self._frame_params(), taps, stages)
+        params, n_eff = self._pick_params_and_bucket()
+        self._state = integrate_frame_bucketed(
+            self._state, d, nrm, rad, color, t_gl, t_lg, frame_index,
+            params, n_eff, taps, stages)
         self._queue_count_readback()
         t2 = time.perf_counter()
         self.timing.add_time("preprocessing", t1 - t0)
@@ -256,27 +297,34 @@ class ReconstructionPipeline:
                            surfel_count=-1,  # fetched lazily: a host sync
                            merge_count=-1)
 
-    # -- active-set budget (JAX pipeline.py:266-374,731-760) ----------------
+    # -- dispatch policy (JAX pipeline.py:266-374,502-506,731-760) ----------
 
-    def _frame_params(self) -> FusionParams:
-        """This frame's fusion parameters: with the auto budget (-1), the
-        budget from the readbacks confirmed so far."""
-        params = self.fusion_params
-        if self.config.active_surfel_budget == -1:
+    def _pick_params_and_bucket(self) -> tuple:
+        """(params, n_eff) for the next frame: without an active-surfel
+        budget the bucket above the count bound; with one the capacity,
+        with the auto budget (-1) the budget from the readbacks confirmed
+        so far.  Logged in bucket_pick_log."""
+        budget = self.config.active_surfel_budget
+        if budget <= 0:          # both policies read the confirmed count
             self._drain_count_readbacks(
                 max(self.config.max_inflight_dispatches - 1, 0))
+        params, n_eff = self.fusion_params, self._state.pack.shape[0]
+        if budget == 0:
+            n_eff = self.shape_bucket_for(self._count_bound(1))
+        elif budget == -1:
             params = dataclasses.replace(
                 params, active_surfel_budget=self._auto_budget())
         self._current_budget = params.active_surfel_budget
-        return params
+        self.bucket_pick_log.append((1, n_eff))
+        return params, n_eff
 
     def _queue_count_readback(self) -> None:
         """Start the copy of (surfel_count, active_tile_count) to the host
-        without waiting for it (auto budget only)."""
-        if self.config.active_surfel_budget != -1:
+        without waiting for it (buckets or the auto budget)."""
+        if self.config.active_surfel_budget > 0:
             return
         self._pending_counts.append(start_readback(torch.stack(
-            [self.state.surfel_count, self.state.active_tile_count])))
+            [self._state.surfel_count, self._state.active_tile_count])))
         self._unconfirmed_frames += 1
 
     def _drain_count_readbacks(self, max_outstanding: int) -> None:
@@ -296,17 +344,28 @@ class ReconstructionPipeline:
             self._lagged_active_tiles = active_tiles
             self._unconfirmed_frames -= 1
 
-    def _count_bound(self) -> int:
-        """Upper bound on the current surfel count: the last confirmed
-        count plus one creation charge per unconfirmed frame, the full
-        creation budget or, with adaptive_creation_bound, factor * the
-        larger of the two latest confirmed growths (at least 2048)."""
+    def _count_bound(self, frames: int = 0) -> int:
+        """Upper bound on the surfel count after `frames` more frames: the
+        last confirmed count plus one creation charge per unconfirmed
+        frame, the full creation budget or, with adaptive_creation_bound,
+        factor * the larger of the two latest confirmed growths (at least
+        2048; a burst past it defers creations to the next frame)."""
         budget = self.fusion_params.max_creations_per_frame
         factor = self.config.adaptive_creation_bound
         if factor > 0 and self._growth_window:
             budget = min(budget, max(
                 2048, int(factor * max(self._growth_window[-2:]))))
-        return self._confirmed_count + self._unconfirmed_frames * budget
+        return self._confirmed_count + \
+            (self._unconfirmed_frames + frames) * budget
+
+    def shape_bucket_for(self, count_bound: int) -> int:
+        """The bucket for a surfel-count bound: the smallest multiple of
+        shape_bucket_step holding it, at most max_surfel_count.  A fixed
+        step keeps each per-surfel pass within one step of the live count
+        at any map size."""
+        step = self.config.shape_bucket_step
+        n_eff = -(-max(count_bound, 1) // step) * step
+        return int(min(max(n_eff, step), self.config.max_surfel_count))
 
     def _auto_budget(self) -> int:
         """The auto budget: twice the lagged tile demand (or, before any
@@ -440,10 +499,11 @@ class ReconstructionPipeline:
 
     def snapshot_dispatch_state(self) -> tuple:
         """A copy of the surfel map and of the bookkeeping that decides the
-        next frames' dispatch (the auto budget's confirmed count, lagged
-        tile demand and growth window; the delta-snapshot frame and rows
-        shipped), for restore_dispatch_state: a benchmark re-runs its
-        timed region from it."""
+        next frames' dispatch (the confirmed count, lagged tile demand and
+        growth window that the bucket and budget picks read; the
+        delta-snapshot frame and rows shipped), for restore_dispatch_state:
+        a benchmark re-runs its timed region from it.  The copy survives
+        the bucketed frames that write the map in place."""
         self.drain()
         return (_clone_state(self.state), self._confirmed_count,
                 self._lagged_active_tiles, list(self._growth_window),
@@ -455,7 +515,7 @@ class ReconstructionPipeline:
         self.drain()
         state, self._confirmed_count, self._lagged_active_tiles, growth, \
             self._last_snap_frame, self.snapshot_rows_shipped = snap
-        self.state = _clone_state(state)
+        self._state = _clone_state(state)
         self._growth_window = list(growth)
         self._unconfirmed_frames = 0
 
@@ -468,12 +528,13 @@ class ReconstructionPipeline:
         """SoA snapshot of the live rows for the meshing engine
         (TransferAllToCPU analog, cuda_surfel_reconstruction.cc:339-359;
         timed as the reference's surfel_transfer stage, main.cc:1255-1266):
-        (smooth (n,3), radius_sq (n,), normal (n,3), stamps (n,), n)."""
+        (smooth (n,3), radius_sq (n,), normal (n,3), stamps (n,), n), copies
+        that the next frame's in-place write leaves as they are."""
         t0 = time.perf_counter()
         smooth, radius_sq, normal, stamps, count = meshing_snapshot(
             self.state)
         count = int(count)
-        out = tuple(a[:count].cpu().numpy()
+        out = tuple(a[:count].to("cpu", copy=True).numpy()
                     for a in (smooth, radius_sq, normal, stamps)) + (count,)
         self._record_transfer(t0)
         return out

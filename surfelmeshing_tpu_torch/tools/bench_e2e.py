@@ -7,7 +7,9 @@ package).
 
 Default configs 500k 20m:-1 (SM_BENCH_SMOKE=1: 41k 41k:-1 on a 24-frame
 160x120 video instead of 40 frames at 640x480).  BUDGET absent or 0 runs
-the full shape, -1 the auto active-set budget, N a fixed one.
+count-sized (a 65,536-row bucket step, 4,096 in smoke mode), as the JAX
+tool does with --use_shape_buckets; -1 the auto active-set budget, N a
+fixed one.
 
 Drives ReconstructionPipeline as the port's bench.py does (untimed
 prefetch and warm-up) and adds the asynchronous meshing thread, paced the
@@ -25,8 +27,9 @@ compiles_in_timed_region counts nvcc / g++ builds.  Added counters of the
 run: peak_mib (peak device memory allocated, null on the CPU),
 skipped_tiles (tiles past the active budget in the final state),
 fused_frames and blend_launches (launches of csrc/blend.cu; 0 on the
-CPU, where blending runs its plain version).  The device defaults to cuda
-and the tool fails without a GPU.
+CPU, where blending runs its plain version) and, for BUDGET 0,
+bucket_picks (the timed frames' n_eff).  The device defaults to cuda and
+the tool fails without a GPU.
 """
 
 from __future__ import annotations
@@ -51,13 +54,14 @@ CHUNK = 4
 WARMUP = 8
 
 
-def run_config(cfg_str: str, video, device) -> dict:
+def run_config(cfg_str: str, video, device, step: int = 65_536) -> dict:
     parts = cfg_str.split(":")
     cap = parse_size(parts[0])
     budget = parse_size(parts[1]) if len(parts) > 1 else 0
 
     cfg = SurfelMeshingConfig(
         max_surfel_count=cap,
+        shape_bucket_step=step,
         max_creations_per_frame=2**15,
         active_surfel_budget=budget,
         restrict_fps_to=0,
@@ -138,6 +142,9 @@ def run_config(cfg_str: str, video, device) -> dict:
         "skipped_tiles": int(pipe.state.skipped_tile_count),
         "fused_frames": fused,
         "blend_launches": blend.blend_core.launches - launches,
+        **({"bucket_picks": [n for _, n in
+                             pipe.bucket_pick_log[-len(timed):]]}
+           if budget == 0 else {}),
     }
 
 
@@ -150,13 +157,13 @@ def main(argv=None) -> list:
     device = resolve_device(args.device)
     if os.environ.get("SM_BENCH_SMOKE") == "1":
         video, _ = synthetic_rgbd_video(24, 160, 120, noise_sigma=0.002)
-        configs = args.configs or ["41k", "41k:-1"]
+        configs, step = args.configs or ["41k", "41k:-1"], 4_096
     else:
         video, _ = synthetic_rgbd_video(40, 640, 480, noise_sigma=0.002)
-        configs = args.configs or ["500k", "20m:-1"]
+        configs, step = args.configs or ["500k", "20m:-1"], 65_536
     results = []
     for cfg_str in configs:
-        results.append(run_config(cfg_str, video, device))
+        results.append(run_config(cfg_str, video, device, step))
         print(json.dumps(results[-1]), flush=True)
     return results
 
