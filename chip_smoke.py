@@ -74,10 +74,12 @@ Phases, each printing one or more lines:
      final state equals e2e's bit for bit; then, for the record, 4 frames
      of the full-shape 20M path (budget 0 with a bucket step of the
      capacity: every pass over 20M rows) timed with CUDA events;
- 13. bench: the port's bench entry points.  `python -m
+ 13. bench: the port's bench entry points, chunked as the JAX tools
+     ship them (frame_chunk 4: a CUDA-graph replay a chunk).  `python -m
      surfelmeshing_tpu_torch.bench` in a process of its own (rc 0, one
-     JSON line with the JAX bench's keys, its stderr diagnostics printed,
-     one blending launch a timed frame, no build in the timed region),
+     JSON line with the JAX bench's keys and graph_captures, its stderr
+     diagnostics printed, one blending launch a timed frame counted
+     across replays, no build in the timed region),
      then its smoke mode with SM_BENCH_CHECK=1 on the card (the card's
      state equal to a CPU replay's, count and pack); then in-process
      through their main(argv) tools/bench_e2e.py (500k, 20m:-1: no build
@@ -95,11 +97,21 @@ Phases, each printing one or more lines:
      by CUDA events, peak memory, the picks); e2e's loop at 500k full
      shape, its final state equal to e2e's count-sized one; the app full
      shape (and --use_shape_buckets, accepted), its point cloud equal to
-     app's byte for byte; bench.py's configuration and first 8 timed
-     frames count-sized and full shape, the frame loop and its drain by
-     CUDA events in turns (count-sized, full, full, count-sized) and
-     each's device busy time from a torch.profiler trace; one blending
-     launch a fused frame in every run;
+     app's byte for byte; bench.py's configuration per frame (frame_chunk
+     1) and first 8 timed frames count-sized and full shape, the frame
+     loop and its drain by CUDA events in turns (count-sized, full, full,
+     count-sized) and each's device busy time from a torch.profiler
+     trace; one blending launch a fused frame in every run;
+     chunk: chunked dispatch (--frame_chunk K) against per-frame.
+     bench.py's configuration and 24 timed frames at K = 4 and K = 1 in
+     turns (K4, K1, K1, K4): final states bit-identical, the graphs
+     captured (keys, host seconds) and replayed, ms/frame by CUDA events
+     and host wall, device busy (torch.profiler) with the idle share,
+     peak memory; bench_e2e's 20m:-1 loop at K = 4: 0 skipped tiles,
+     state equal to [e2e]'s; the app with --frame_chunk 3: PLY equal to
+     [app]'s; symmetric_regularization=False at K = 4 (eager on the card,
+     reported graph false) bit-identical to K = 1; one blending launch a
+     fused frame, replays included;
  16. batch: BASELINE config 5's count, 8 synthetic 640x480 sequences
      (distinct scene / trajectory pairs) at 500k capacity each, default
      settings, in lockstep over 12 fused frames through
@@ -137,10 +149,10 @@ Phases, each printing one or more lines:
      mesh within 1 mm (mean) of the golden oracle's.  It starts after the
      build: the port fuses on the card and the host-side oracle runs in a
      worker process while phases 3-20 run; the phase ends last.
-Phases 7-9, 13, buckets and 17-21 print their wall time.
+Phases 7-9, 13, buckets, chunk and 17-21 print their wall time.
 Then one JSON line describing the kernels (per kernel: launches on its
 path and per main-path frame, for the blending kernel also on the [batch],
-[shard], [video] app, [live-viewer], [bench] and [buckets] paths,
+[shard], [video] app, [live-viewer], [bench], [buckets] and [chunk] paths,
 max_abs_err
 against the plain version, device / host-inclusive / plain times, the
 bound with what sets it, and the one-call PyTorch yardstick or null)
@@ -167,6 +179,7 @@ import numpy as np
 import torch
 
 from surfelmeshing_tpu_torch import bench
+from surfelmeshing_tpu_torch import chunk as chunk_module
 from surfelmeshing_tpu_torch.app import main as app_main
 from surfelmeshing_tpu_torch.app import multi_sequence as MS
 from surfelmeshing_tpu_torch.config import SurfelMeshingConfig
@@ -994,6 +1007,7 @@ def run_e2e(device, cfg, label: str) -> dict:
     pipe.block_until_ready()
     rows_before = pipe.snapshot_rows_shipped
     snaps_before = len(tags)
+    captures_before = pipe.graph_captures
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
@@ -1006,6 +1020,7 @@ def run_e2e(device, cfg, label: str) -> dict:
     pipe.block_until_ready()
     wall = time.perf_counter() - t0
     launches = blend.blend_core.launches
+    timed_captures = pipe.graph_captures - captures_before
     mesher.drain()
     tris = int(mesher.engine.triangle_count)
     last_mesh = mesher.peek_output()
@@ -1018,8 +1033,11 @@ def run_e2e(device, cfg, label: str) -> dict:
     surfels = pipe.surfel_count()
     ms_wall = 1000.0 * wall / len(timed)
     ms_events = start.elapsed_time(end) / len(timed)
+    # A chunked run times preprocessing inside "integration".
     stages = ", ".join(
-        f"{tag} {1000.0 * st.mean:.3f}" for tag, st in (
+        f"{tag} " + ("in integration (chunked)" if st is None
+                     else f"{1000.0 * st.mean:.3f}")
+        for tag, st in (
             (tag, pipe.timing.stats(tag)) for tag in
             ("preprocessing", "integration", "surfel_transfer")))
     summary = (
@@ -1036,6 +1054,9 @@ def run_e2e(device, cfg, label: str) -> dict:
           f"{label}: delta snapshots shipped as many rows as full ones")
     return dict(summary=summary, split=split, launches=launches, fused=fused,
                 budgets=budgets, picks=[n for _, n in pipe.bucket_pick_log],
+                chunks=[f for f, _ in pipe.bucket_pick_log],
+                graph_captures=pipe.graph_captures,
+                timed_captures=timed_captures,
                 state=live_state(pipe.state),
                 view=dict(mesh=last_mesh, camera=pipe.camera,
                           pose=video.depth_frames[frames[-1]].global_T_frame))
@@ -1150,7 +1171,8 @@ def run_bench(smoke: bool) -> tuple:
     built = int(re.search(r"builds in the timed region (\d+)",
                           run.stderr).group(1))
     metric = lines[-1]
-    check(set(metric) == {"metric", "value", "unit", "vs_baseline"},
+    check(set(metric) == {"metric", "value", "unit", "vs_baseline",
+                          "graph_captures"},
           f"{label}: last stdout line {metric}")
     check(metric["metric"] == ("SMOKE_" if smoke else "") +
           "fusion_fps_640x480_500k" and metric["value"] > 0,
@@ -1297,62 +1319,98 @@ def phase_app_20m(device, ply: bytes) -> None:
 
 
 BUSY_FRAMES = 8
-BUSY_MODES = ("count-sized", "full shape")
 
 
-def bench_busy(device) -> tuple:
-    """bench.py's configuration and first BUSY_FRAMES timed frames
-    (surfelmeshing_tpu_torch/bench.py::setup), count-sized and full shape,
-    one pipeline each after bench.py's untimed prefetch and warm-up.  The
-    frames are replayed from a dispatch-state snapshot, restored and
-    prefetched before each timed window as bench.py does, the frame loop
-    and its drain between CUDA events in the order count-sized, full,
-    full, count-sized, then once each under torch.profiler (busy_ms).
-    -> ({mode: ms a frame of each round, device busy ms a frame, picks},
-    fused frames)."""
+def bench_rounds(device, variants: dict, n_frames: int,
+                 alone: str = None) -> dict:
+    """bench.py's video (bench.setup) and its first `n_frames` timed
+    frames under each named variant of bench.py's config (a function of
+    it): one pipeline each after bench.py's
+    untimed prefetch and warm-up and one untimed round (graphs captured
+    there), then replayed from a dispatch-state snapshot, restored and
+    prefetched outside each window: the frame loop and its drain between
+    CUDA events and on the host clock in turns (the configs in order,
+    then reversed), then once each under torch.profiler (busy_ms).  Peak
+    memory allocated: each round's (every pipeline resident; a replay
+    allocates nothing, so it leaves out the graphs' pool) and each
+    setup's (warm-up, captures, untimed round; "resident": what earlier
+    setups left).  The `alone` config is set up first and timed once more
+    before the others exist.  Blending launches are counted per config
+    over all its runs.  -> {name: dict(pipe, ms, wall, peak, setup_peak,
+    busy, state, picks, launches, fused, frames, timed_captures,
+    alone)}."""
     video, cfg, lo, hi, timed = bench.setup(smoke=False)
-    frames = timed[:BUSY_FRAMES]
-    runs, fused = {}, 0
-    for mode in BUSY_MODES:
-        pipe = ReconstructionPipeline(
-            cfg if mode == BUSY_MODES[0] else full_shape(cfg),
-            video.depth_camera, device)
-        pipe.prefetch_inputs(video, lo, hi)
-        for i in range(lo, timed[0]):
-            pipe.process_frame(video, i)
-        fused += timed[0] - lo
-        runs[mode] = dict(pipe=pipe, snap=pipe.snapshot_dispatch_state(),
-                          ms=[])
+    cfgs = {name: make(cfg) for name, make in variants.items()}
+    frames = timed[:n_frames]
+    runs = {}
 
-    def prepare(mode):
-        pipe = runs[mode]["pipe"]
-        pipe.restore_dispatch_state(runs[mode]["snap"])
+    def prepare(name):
+        pipe = runs[name]["pipe"]
+        pipe.restore_dispatch_state(runs[name]["snap"])
         pipe.prefetch_inputs(video, frames[0], hi)
         torch.cuda.synchronize()
 
-    def replay(mode):
-        pipe = runs[mode]["pipe"]
+    def replay(name):
+        pipe = runs[name]["pipe"]
         for i in frames:
             pipe.process_frame(video, i)
         pipe.drain()
 
-    for mode in BUSY_MODES + BUSY_MODES[::-1]:
-        prepare(mode)
+    def counted(name, run):
+        zero_blend_counts()
+        run()
+        runs[name]["launches"] += blend.blend_core.launches
+        runs[name]["fused"] += len(frames)
+
+    def timed_round(name):
+        prepare(name)
+        torch.cuda.reset_peak_memory_stats()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
         start.record()
-        replay(mode)
+        counted(name, lambda: replay(name))
         end.record()
         torch.cuda.synchronize()
-        runs[mode]["ms"].append(start.elapsed_time(end) / len(frames))
-    for mode in BUSY_MODES:
-        prepare(mode)
-        busy = busy_ms({mode: lambda: replay(mode)})[mode]
-        runs[mode]["busy"] = None if busy is None else busy / len(frames)
-        runs[mode]["picks"] = [
-            n for _, n in runs[mode]["pipe"].bucket_pick_log[-len(frames):]]
-    fused += 3 * len(frames) * len(BUSY_MODES)
-    return runs, fused
+        wall = time.perf_counter() - t0
+        return (start.elapsed_time(end) / len(frames),
+                1000.0 * wall / len(frames), peak_mib())
+
+    for name in sorted(cfgs, key=lambda n: n != alone):
+        resident = torch.cuda.memory_allocated() / 2 ** 20
+        torch.cuda.reset_peak_memory_stats()
+        pipe = ReconstructionPipeline(cfgs[name], video.depth_camera, device)
+        pipe.prefetch_inputs(video, lo, hi)
+        for i in range(lo, timed[0]):
+            pipe.process_frame(video, i)
+        runs[name] = dict(pipe=pipe, snap=pipe.snapshot_dispatch_state(),
+                          ms=[], wall=[], peak=[], launches=0, fused=0,
+                          frames=len(frames))
+        prepare(name)
+        counted(name, lambda: replay(name))
+        runs[name]["setup_peak"] = \
+            f"{peak_mib()} ({resident:.1f} resident)"
+        runs[name]["captures"] = pipe.graph_captures
+        if name == alone:
+            runs[name]["alone"] = timed_round(name)
+    for name in list(cfgs) + list(cfgs)[::-1]:
+        ms, wall, peak = timed_round(name)
+        runs[name]["ms"].append(ms)
+        runs[name]["wall"].append(wall)
+        runs[name]["peak"].append(peak)
+    for name, run in runs.items():
+        run["timed_captures"] = run["pipe"].graph_captures - run["captures"]
+        prepare(name)
+        pipe = run["pipe"]
+        picks = len(pipe.bucket_pick_log)
+        busy = {}
+        counted(name, lambda: busy.update(
+            busy_ms({name: lambda: replay(name)})))
+        run["busy"] = None if busy[name] is None else \
+            busy[name] / len(frames)
+        run["state"] = live_state(pipe.state)
+        run["picks"] = pipe.bucket_pick_log[picks:]
+    return runs
 
 
 def phase_buckets(device, e2e, full, app) -> int:
@@ -1418,20 +1476,160 @@ def phase_buckets(device, e2e, full, app) -> int:
           f"{app_launches} blend launches for {fused} fused frames")
     launches += app_launches
 
-    zero_blend_counts()
-    busy, fused = bench_busy(device)
-    traced, _ = blend_counts()
+    # Per-frame dispatch (frame_chunk 1), as this phase first measured it;
+    # [chunk] runs bench.py's chunk.
+    def per_frame(cfg):
+        return dataclasses.replace(cfg, frame_chunk=1)
+
+    busy = bench_rounds(device, {
+        "count-sized": per_frame,
+        "full shape": lambda cfg: full_shape(per_frame(cfg))}, BUSY_FRAMES)
     for (mode, b), rounds in zip(busy.items(), ("1 and 4", "2 and 3")):
         ms = sum(b["ms"]) / len(b["ms"])
         print(f"[buckets] bench.py frames, {mode}: "
               f"{' / '.join(f'{x:.3f}' for x in b['ms'])} ms/frame CUDA "
               f"events over the frame loop and its drain (rounds {rounds} "
               f"of 4), device busy {fmt_busy(b['busy'], ms)} a frame over "
-              f"{BUSY_FRAMES} timed frames; picks {b['picks']}")
-    check(traced == fused, f"[buckets] bench frames: {traced} blend "
-          f"launches for {fused} fused frames")
-    launches += traced
+              f"{BUSY_FRAMES} timed frames; picks "
+              f"{[n for _, n in b['picks']]}")
+        check(b["launches"] == b["fused"], f"[buckets] bench frames, "
+              f"{mode}: {b['launches']} blend launches for {b['fused']} "
+              f"fused frames")
+        launches += b["launches"]
     print(f"[buckets] phase wall {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+CHUNK_FRAMES = 24     # bench.py's timed frames
+
+
+def phase_chunk(device, video, e2e, app) -> int:
+    """Chunked dispatch (--frame_chunk K, one CUDA-graph replay a
+    sub-chunk) against per-frame dispatch: bench.py's frames at K = 4 and
+    1 in turns (states bit-identical, ms/frame, busy, idle share, peak
+    memory); bench_e2e's 20m:-1 loop chunked (0 skipped tiles, state
+    equal to [e2e]'s, which [e2e-20m] equals); the app with --frame_chunk
+    3 (PLY equal to [app]'s); symmetric_regularization=False chunked on
+    the slice video (eager on the card: no graph), bit-identical to
+    per-frame.  One blending launch a fused frame, replays included.
+    -> the blending launches of the chunked runs."""
+    t0 = time.perf_counter()
+    runs = bench_rounds(device, {
+        "K4": lambda cfg: cfg,
+        "K1": lambda cfg: dataclasses.replace(cfg, frame_chunk=1)},
+        CHUNK_FRAMES, alone="K1")
+    k4, k1 = runs["K4"], runs["K1"]
+    pipe = k4["pipe"]
+    check(pipe.config.frame_chunk == bench.CHUNK == 4,
+          f"[chunk] bench.py runs frame_chunk {pipe.config.frame_chunk}")
+    equal = states_equal(k4["state"], k1["state"])
+    print(f"[chunk] bench.py's {k4['frames']} timed frames at 640x480 / "
+          f"500k, K=4: "
+          f"{pipe.graph_captures} graphs captured (frames, n_eff, budget) "
+          f"{pipe.graph_keys} in {pipe.graph_capture_s:.3f} s host "
+          f"(warm-ups included), {k4['timed_captures']} in the timed "
+          f"rounds; {pipe.graph_replays} replays; final state bit-identical "
+          f"to K=1's: {equal}")
+    alone = k1["alone"]
+    print(f"[chunk] K1 alone, before the K=4 pipeline existed: "
+          f"{alone[0]:.3f} ms/frame CUDA events, {alone[1]:.3f} host wall, "
+          f"peak {alone[2]} MiB allocated")
+    for mode, rounds in (("K4", "1 and 4"), ("K1", "2 and 3")):
+        r = runs[mode]
+        ms = sum(r["ms"]) / len(r["ms"])
+        events, wall = (" / ".join(f"{x:.3f}" for x in r[k])
+                        for k in ("ms", "wall"))
+        print(f"[chunk] {mode}: {events} ms/frame CUDA events, {wall} "
+              f"host wall over the frame loop and its drain (rounds "
+              f"{rounds} of 4); device busy {fmt_busy(r['busy'], ms)} a "
+              f"frame; peak {' / '.join(r['peak'])} MiB allocated in the "
+              f"rounds (both maps resident), {r['setup_peak']} MiB over "
+              f"its setup; {r['launches']} blend launches for "
+              f"{r['fused']} fused frames; picks (frames, n_eff) "
+              f"{r['picks']}")
+        check(r["launches"] == r["fused"], f"[chunk] {mode}: "
+              f"{r['launches']} blend launches for {r['fused']} frames")
+    check(equal, "[chunk] K=4 state differs from K=1's")
+    check(pipe.graph_captures > 0 and pipe.graph_replays > 0,
+          "[chunk] no CUDA graph captured or replayed")
+    launches = k4["launches"]
+
+    capacity = SurfelMeshingConfig().max_surfel_count
+    run = run_e2e(device, dataclasses.replace(e2e_config(capacity, -1),
+                                              frame_chunk=E2E_CHUNK),
+                  "chunk-e2e-20m")
+    skipped = int(run["state"]["skipped_tile_count"])
+    equal = states_equal(run["state"], e2e["state"])
+    print(f"[chunk] e2e 20m:-1 with frame_chunk {E2E_CHUNK}: "
+          f"{run['summary']}; sub-chunks {run['chunks']}; graphs captured "
+          f"{run['graph_captures']}, {run['timed_captures']} of them (each "
+          f"with a warm-up on a copy of the map) in the timed frames; "
+          f"skipped tiles {skipped}; "
+          f"{run['launches']} blend launches for "
+          f"{run['fused']} fused frames; final state bit-identical to "
+          f"[e2e]'s (and so [e2e-20m]'s): {equal}")
+    check(skipped == 0, f"[chunk] e2e 20m:-1: {skipped} tiles skipped")
+    check(equal, "[chunk] e2e 20m:-1 chunked state differs from [e2e]'s")
+    check(run["launches"] == run["fused"], f"[chunk] e2e 20m:-1: "
+          f"{run['launches']} blend launches for {run['fused']} frames")
+    launches += run["launches"]
+
+    sizes = []
+    chunk_run = chunk_module.ChunkStep.run
+
+    def counted_run(self, state, entries, params, n_eff):
+        sizes.append(len(entries))
+        return chunk_run(self, state, entries, params, n_eff)
+
+    chunk_module.ChunkStep.run = counted_run
+    zero_blend_counts()
+    try:
+        app3 = run_app(device, ["--max_surfel_count", "500000",
+                                "--frame_chunk", "3"], checkpoint=False)
+    finally:
+        chunk_module.ChunkStep.run = chunk_run
+    app_launches, _ = blend_counts()
+    print(f"[chunk] app --frame_chunk 3 on tum_micro: rc {app3['rc']} in "
+          f"{app3['seconds']:.2f} s ([app] {app['seconds']:.2f} s); "
+          f"sub-chunks {sizes}; PLY byte-identical to [app]'s: "
+          f"{app3['ply'] == app['ply']}; {app_launches} blend launches for "
+          f"{sum(sizes)} fused frames")
+    check(app3["ply"] == app["ply"], "[chunk] app PLY differs from [app]'s")
+    check(app_launches == sum(sizes) > 0,
+          f"[chunk] app: {app_launches} blend launches, sub-chunks {sizes}")
+    launches += app_launches
+
+    modes = dict(symmetric_regularization=False)
+    exact = {}
+    for chunk in (4, 1):
+        pipe = ReconstructionPipeline(slice_config(frame_chunk=chunk),
+                                      video.depth_camera, device)
+        pipe.fusion_params = dataclasses.replace(pipe.fusion_params, **modes)
+        zero_blend_counts()
+        for i in range(video.frame_count):
+            pipe.process_frame(video, i)
+        pipe.drain()
+        exact[chunk] = dict(state=live_state(pipe.state),
+                            launches=blend.blend_core.launches,
+                            graphs=pipe.graph_captures,
+                            graph=chunk > 1 and
+                            pipe._chunk.graphs_for(pipe.fusion_params),
+                            picks=[f for f, _ in pipe.bucket_pick_log])
+    equal = states_equal(exact[4]["state"], exact[1]["state"])
+    fused = sum(exact[4]["picks"])
+    print(f"[chunk] slice with symmetric_regularization=False, K=4: graph "
+          f"{str(exact[4]['graph']).lower()} (eager on the card), "
+          f"{exact[4]['graphs']} captures, sub-chunks {exact[4]['picks']}; "
+          f"{exact[4]['launches']} blend launches for {fused} fused frames; "
+          f"state bit-identical to K=1's: {equal}")
+    check(not exact[4]["graph"] and exact[4]["graphs"] == 0,
+          "[chunk] symmetric_regularization=False was captured")
+    check(equal, "[chunk] symmetric_regularization=False chunked state "
+          "differs from per-frame")
+    check(exact[4]["launches"] == fused, f"[chunk] exact regularization: "
+          f"{exact[4]['launches']} blend launches for {fused} frames")
+    launches += exact[4]["launches"]
+    print(f"[chunk] phase wall {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -1873,6 +2071,7 @@ def kernel_entry(name, source, replaces, launches, per_frame, t) -> dict:
         "wrapper_calls", "batch_path_launches", "shard_path_launches",
         "video_path_launches", "live_viewer_path_launches",
         "bench_path_launches", "buckets_path_launches",
+        "chunk_path_launches",
         "radius32_device_ms", "sweep", "slice_inputs_device_ms",
         "slice_r48_kernels_per_frame", "gpu_vs_cpu_launches")
         if k in t}
@@ -1929,6 +2128,7 @@ def run_phases(device, anchor) -> list:
     app = phase_app(device)
     phase_app_20m(device, app["ply"])
     buckets_launches = phase_buckets(device, e2e, full_20m, app)
+    chunk_launches = phase_chunk(device, video, e2e, app)
     video_run = phase_video(device, e2e, app)
     live_run = phase_live_viewer(device)
     batch_run = phase_batch(device)
@@ -1949,7 +2149,8 @@ def run_phases(device, anchor) -> list:
                                  live_viewer_path_launches=live_run[
                                      "launches"],
                                  bench_path_launches=bench_launches,
-                                 buckets_path_launches=buckets_launches)),
+                                 buckets_path_launches=buckets_launches,
+                                 chunk_path_launches=chunk_launches)),
                kernel_entry("blend_wide", "blend_wide.cu",
                             "surfelmeshing_tpu/ops/fusion.py:1726",
                             wide_slice["kernels"], 0,

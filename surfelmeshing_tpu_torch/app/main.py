@@ -25,6 +25,12 @@ run; the server is closed when run() returns.
 --profile_dir writes a torch.profiler trace of the frame loop (CPU and,
 on a CUDA device, CUDA activities) as DIR/trace.json, the counterpart of
 the JAX application's jax.profiler trace.
+
+--frame_chunk K defers frames and runs them K at a time (pipeline.py):
+on the card each power-of-2 sub-chunk is one CUDA-graph replay.  Every
+snapshot, stats line, timings line and export reads the map and so
+flushes the frames deferred before it; the outputs equal K=1's byte for
+byte.
 """
 
 from __future__ import annotations

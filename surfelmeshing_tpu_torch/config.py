@@ -163,11 +163,14 @@ class SurfelMeshingConfig:
     # kernels.cu:77-87).  0 = off.  Rounds max_surfel_count up to a tile
     # multiple.  TPU-specific flag with no reference equivalent.
     active_surfel_budget: int = 0
-    # Frames per device launch in the JAX package (a lax.scan over the
-    # per-frame step, amortizing a remote TPU's dispatch latency).  Accepted
-    # for the JAX package's command lines; this port dispatches one frame at
-    # a time whatever its value (its counterpart would be a CUDA graph over
-    # K frames).  TPU-specific flag with no reference equivalent.
+    # Chunked dispatch: frames are deferred and run K at a time (the JAX
+    # package's one lax.scan launch over the per-frame step).  Every read
+    # of the map flushes the deferred frames, in power-of-2 sub-chunks, so
+    # the results equal per-frame dispatch bit for bit.  On the card a
+    # sub-chunk is one CUDA-graph replay of its frames' steps (eager for
+    # symmetric_regularization=False); on the CPU it runs the same step
+    # eagerly.  log_timings_staged and debug_depth_preprocessing do not
+    # defer.  1 = per-frame dispatch.  No reference equivalent.
     frame_chunk: int = 1
 
     # Live browser viewer (headless analog of the reference's interactive
@@ -360,9 +363,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "a power-of-2 ladder (TPU-specific; no reference "
                         "equivalent)")
     p.add_argument("--frame_chunk", type=int, default=d.frame_chunk,
-                   help="frames per device launch in the JAX package; "
-                        "accepted, and this port dispatches one frame at "
-                        "a time (TPU-specific; no reference equivalent)")
+                   help="defer frames and run them K at a time: on the "
+                        "GPU one CUDA-graph replay a power-of-2 sub-chunk "
+                        "(eager with symmetric_regularization off), on the "
+                        "CPU the same steps eagerly; any read of the map "
+                        "flushes; results equal K=1 (no reference "
+                        "equivalent)")
     p.add_argument("--live_viewer", type=int, default=0, metavar="PORT",
                    help="serve the live WebGL viewer on this port (0=off)")
     p.add_argument("--save_checkpoint", type=str, default=None,

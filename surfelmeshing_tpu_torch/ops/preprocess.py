@@ -21,6 +21,7 @@ Numerical parity notes (same as the JAX package):
 
 from __future__ import annotations
 
+import functools
 import math
 import struct
 from typing import Callable, Optional, Tuple
@@ -118,6 +119,24 @@ def _shifted(padded: torch.Tensor, pad: int, dy: int, dx: int,
     return padded[pad + dy: pad + dy + height, pad + dx: pad + dx + width]
 
 
+@functools.lru_cache(maxsize=None)
+def _grid_term(radius: int, denom_xy: float, device) -> torch.Tensor:
+    """(taps, 1, 1) f32 spatial exponents -(dx^2 + dy^2) / denom_xy of the
+    bilateral filter's taps, built once a (radius, denom, device): the
+    host-to-device copy that makes it cannot run inside a CUDA graph
+    capture, so the chunk step's warm-up builds it first."""
+    return torch.tensor([-(dx * dx + dy * dy) / denom_xy
+                         for dy, dx in _bilateral_taps(radius)],
+                        dtype=torch.float32, device=device)[:, None, None]
+
+
+def _bilateral_taps(radius: int) -> list:
+    """(dy, dx) of the taps inside the filter's circle, row-major."""
+    return [(dy, dx) for dy in range(-radius, radius + 1)
+            for dx in range(-radius, radius + 1)
+            if dx * dx + dy * dy <= radius * radius]
+
+
 def bilateral_filter_and_cutoff(
     depth: torch.Tensor,
     sigma_xy: float,
@@ -137,9 +156,7 @@ def bilateral_filter_and_cutoff(
     height, width = depth.shape
     radius = int(radius_factor * sigma_xy + 0.5)
     denom_xy = 2.0 * sigma_xy * sigma_xy
-    taps = [(dy, dx) for dy in range(-radius, radius + 1)
-            for dx in range(-radius, radius + 1)
-            if dx * dx + dy * dy <= radius * radius]
+    taps = _bilateral_taps(radius)
 
     depth = depth.to(torch.int32)
     center = depth.to(torch.float32)
@@ -156,9 +173,7 @@ def bilateral_filter_and_cutoff(
     padded = F.pad(center, (radius, radius, radius, radius))
     samples = torch.stack([_shifted(padded, radius, dy, dx, height, width)
                            for dy, dx in taps])
-    grid_term = torch.tensor([-(dx * dx + dy * dy) / denom_xy
-                              for dy, dx in taps], dtype=torch.float32,
-                             device=depth.device)[:, None, None]
+    grid_term = _grid_term(radius, denom_xy, depth.device)
     value_dist_sq = (center - samples) ** 2
     weights = exp_f32(grid_term - value_dist_sq / adapted_denom)
     weights = torch.where(samples != 0, weights, 0.0)

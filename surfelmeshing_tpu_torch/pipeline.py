@@ -3,14 +3,29 @@
 Counterpart of surfelmeshing_tpu/pipeline.py's per-frame step: keeps the
 resident window of depth frames for outlier filtering, runs preprocessing
 and fusion on the device, ships meshing snapshots (full, then changed rows
-only), tracks per-stage host timings and exports results.  Torch runs
-each frame eagerly, one dispatch a frame: config.frame_chunk is accepted
-and changes nothing, since it only sets how many frames the JAX package
-puts into one launch (its counterpart, a CUDA graph over K frames, is not
-built).  Of the JAX package's dispatch machinery the precompiles
+only), tracks per-stage host timings and exports results.  With
+frame_chunk 1 (the default) torch runs each frame eagerly as it comes.
+Of the JAX package's dispatch machinery the precompiles
 (precompile_shape_buckets, set_allowed_buckets, shape_bucket_ladder) and
 the delta-row bucket have no counterpart: nothing here is compiled per
 shape.
+
+Chunked dispatch (frame_chunk K > 1) is the JAX package's: frames are
+deferred (process_frame returns FrameResult(i, -1, -1)) and flushed at K
+pending frames, and by every read of the map (state, snapshots, exports,
+surfel_count, drain, block_until_ready, snapshot_dispatch_state), as
+power-of-2 sub-chunks, largest first; each sub-chunk of `size` frames
+takes one bucket pick and one count readback, charged for `size` frames
+(bucket_pick_log records (size, n_eff)), and its host time is
+"integration", amortized per frame in the timings line.  A sub-chunk runs
+through chunk.ChunkStep: on the card one CUDA-graph replay of its frame
+steps (graph_captures, graph_replays, graph_capture_s, graph_keys count
+them), on the CPU the same body called directly.
+symmetric_regularization=False is deferred alike but its sub-chunks run
+eagerly on the card (ChunkStep.graphs_for; logged at the first one).
+Assigning `state` raises while frames are pending.  log_timings_staged
+and debug_depth_preprocessing need per-frame intermediates and do not
+defer, as in the JAX package.
 
 Without an active-surfel budget every frame is count-sized, the
 reference's launches over surfels_size (cuda_surfel_reconstruction.cc:
@@ -65,6 +80,8 @@ import numpy as np
 import torch
 
 from . import resolve_device
+from .chunk import (ChunkEntry, ChunkStep, clone_state, pose_pack,
+                    same_layout, split_pose_pack)
 from .config import SurfelMeshingConfig
 from .io.mesh_io import write_ply
 from .io.tum import RGBDVideo
@@ -96,11 +113,6 @@ class FrameResult:
     frame_index: int
     surfel_count: int
     merge_count: int
-
-
-def _clone_state(state: SurfelState) -> SurfelState:
-    return SurfelState(**{f.name: getattr(state, f.name).clone()
-                          for f in dataclasses.fields(SurfelState)})
 
 
 def fusion_params_from_config(config: SurfelMeshingConfig,
@@ -171,13 +183,22 @@ class ReconstructionPipeline:
         self._state: SurfelState = create_surfel_state(capacity,
                                                        self.device)
         self._log_device_memory()
+        # Chunked dispatch (module docstring): the deferred frames
+        # (chunk.ChunkEntry) and the step that runs them.
+        self._pending = []
+        self._defer = (config.frame_chunk > 1 and
+                       not config.log_timings_staged and
+                       not config.debug_depth_preprocessing)
+        self._chunk = ChunkStep(config, self.device,
+                                preprocess_kwargs(config, self.camera)) \
+            if self._defer else None
         self.timing = Timing()
         self.timings_log_lines = []
         self._last_stage_ms: Dict[str, float] = {}
         # Resident depth-frame window keyed by frame index, mirroring
         # frame_index_to_depth_buffer (main.cc:904-968).
         self._depth_buffers: Dict[int, torch.Tensor] = {}
-        # Device-staged (transforms, color, t_gl, t_lg) of prefetched frames.
+        # Device-staged (pose pack, color) of prefetched frames.
         self._staged_inputs: Dict[int, tuple] = {}
         # Delta-snapshot state: the frame of the last meshing snapshot and
         # what all snapshots shipped.
@@ -194,26 +215,69 @@ class ReconstructionPipeline:
         self._pending_counts = []
         self._growth_window = []
         self._current_budget = config.active_surfel_budget
-        # (frames, n_eff) of every fused frame.
+        # (frames, n_eff) of every dispatch: a frame, or a sub-chunk.
         self.bucket_pick_log = []
 
     @property
     def state(self) -> SurfelState:
-        """The surfel map.  A bucketed frame writes its rows into these
-        tensors in place."""
+        """The surfel map; reading it runs the deferred frames first.  A
+        frame writes its rows into these tensors in place."""
+        self._flush()
         return self._state
 
     @state.setter
     def state(self, value: SurfelState) -> None:
         """Replace the map (a loaded checkpoint, regularize_only): the
         dispatch policy restarts from the new map's surfel count and tile
-        demand, read once here, and drops the old map's readbacks."""
+        demand, read once here, and drops the old map's readbacks.
+        Refused while frames are pending (the JAX pipeline's rule)."""
+        if self._pending:
+            raise RuntimeError(
+                "cannot replace pipeline state while deferred frames are "
+                "pending (read .state first to flush them)")
         self._pending_counts = []
         self._unconfirmed_frames = 0
         self._growth_window = []
         self._confirmed_count, self._lagged_active_tiles = torch.stack(
             [value.surfel_count, value.active_tile_count]).tolist()
-        self._state = value
+        self._adopt(value, copy=False)
+
+    def _adopt(self, value: SurfelState, copy: bool) -> None:
+        """Make `value` the map.  While chunk graphs write the map's
+        tensors, a value of the same layout is copied into them, so the
+        graphs stay valid; otherwise the graphs are dropped and `value`
+        (a copy of it with `copy`) becomes the map."""
+        if self._chunk is not None and self._chunk.has_graphs() and \
+                same_layout(self._state, value):
+            for f in dataclasses.fields(SurfelState):
+                dst, src = getattr(self._state, f.name), \
+                    getattr(value, f.name)
+                if dst is not src:
+                    dst.copy_(src)
+            return
+        if self._chunk is not None:
+            self._chunk.drop_graphs()
+        self._state = clone_state(value) if copy else value
+
+    # -- chunk graph counters (0 without chunked dispatch) ----------------
+
+    @property
+    def graph_captures(self) -> int:
+        return self._chunk.captures if self._chunk else 0
+
+    @property
+    def graph_replays(self) -> int:
+        return self._chunk.replays if self._chunk else 0
+
+    @property
+    def graph_capture_s(self) -> float:
+        """Host seconds of the captures, their warm-ups included."""
+        return self._chunk.capture_s if self._chunk else 0.0
+
+    @property
+    def graph_keys(self) -> list:
+        """(frames, n_eff, active_surfel_budget) of each capture."""
+        return list(self._chunk.keys) if self._chunk else []
 
     def _log_device_memory(self) -> None:
         """Device memory report at init (cudaMemGetInfo, main.cc:859-869)."""
@@ -258,9 +322,24 @@ class ReconstructionPipeline:
            frame_index >= video.frame_count - half_window:
             return None
 
+        if self._defer:
+            if taps is not None:
+                raise ValueError("taps need per-frame dispatch "
+                                 "(frame_chunk 1)")
+            self._pending.append(self._chunk_entry(video, frame_index))
+            self._retire_depth(frame_index - half_window)
+            video.color_frames[frame_index].clear_image()
+            video.depth_frames[frame_index].clear_image()
+            if len(self._pending) >= cfg.frame_chunk:
+                self._flush()
+            return FrameResult(frame_index=frame_index, surfel_count=-1,
+                               merge_count=-1)
+
         t0 = time.perf_counter()
-        transforms, color, t_gl, t_lg = self._staged_inputs.get(
-            frame_index) or self._stage_inputs(video, frame_index)
+        pack, color = self._staged_inputs.get(frame_index) or \
+            self._stage_inputs(video, frame_index)
+        transforms, t_gl, t_lg, _ = split_pose_pack(
+            pack, cfg.outlier_filtering_frame_count)
         depth = self._depth_buffers[frame_index]
         others = [self._depth_buffers[frame_index + offset]
                   for offset in self._window_offsets()]
@@ -277,11 +356,11 @@ class ReconstructionPipeline:
         t1 = time.perf_counter()
         stages = StageTimer(self.device) \
             if cfg.log_timings and cfg.log_timings_staged else None
-        params, n_eff = self._pick_params_and_bucket()
+        params, n_eff = self._pick_params_and_bucket(frames=1)
         self._state = integrate_frame_bucketed(
             self._state, d, nrm, rad, color, t_gl, t_lg, frame_index,
             params, n_eff, taps, stages)
-        self._queue_count_readback()
+        self._queue_count_readback(frames=1)
         t2 = time.perf_counter()
         self.timing.add_time("preprocessing", t1 - t0)
         self.timing.add_time("integration", t2 - t1)
@@ -297,52 +376,93 @@ class ReconstructionPipeline:
                            surfel_count=-1,  # fetched lazily: a host sync
                            merge_count=-1)
 
+    # -- chunked dispatch (JAX pipeline.py:214-227,376-451) -----------------
+
+    def _chunk_entry(self, video: RGBDVideo, frame_index: int) -> ChunkEntry:
+        """A deferred frame's inputs: its depth window's device tensors and
+        its color and pose pack, taken from the prefetched ones when
+        staged (consumed here), else made on the host."""
+        depths = [self._depth_buffers[frame_index]] + [
+            self._depth_buffers[frame_index + o]
+            for o in self._window_offsets()]
+        staged = self._staged_inputs.pop(frame_index, None)
+        if staged is not None:
+            pose, color = staged
+        else:
+            pose = self._frame_pose_pack(video, frame_index)
+            color = self._frame_color(video, frame_index)
+        return ChunkEntry(depths, color, pose)
+
+    def _flush(self) -> None:
+        """Run every deferred frame, as power-of-2 sub-chunks (largest
+        first), one bucket pick, one ChunkStep run and one count readback
+        each (the JAX pipeline's _flush).  The chunk's host time is
+        "integration", amortized per frame for the timings line."""
+        if not self._pending:
+            return
+        pending, self._pending = self._pending, []
+        c = len(pending)
+        t0 = time.perf_counter()
+        while pending:
+            size = 1 << (len(pending).bit_length() - 1)
+            entries, pending = pending[:size], pending[size:]
+            params, n_eff = self._pick_params_and_bucket(frames=size)
+            self._chunk.run(self._state, entries, params, n_eff)
+            self._queue_count_readback(frames=size)
+        t1 = time.perf_counter()
+        self.timing.add_time("integration", t1 - t0)
+        self._last_stage_ms = {"integration": 1000.0 * (t1 - t0) / c}
+
     # -- dispatch policy (JAX pipeline.py:266-374,502-506,731-760) ----------
 
-    def _pick_params_and_bucket(self) -> tuple:
-        """(params, n_eff) for the next frame: without an active-surfel
-        budget the bucket above the count bound; with one the capacity,
-        with the auto budget (-1) the budget from the readbacks confirmed
-        so far.  Logged in bucket_pick_log."""
+    def _pick_params_and_bucket(self, frames: int) -> tuple:
+        """(params, n_eff) for a dispatch of `frames` frames: without an
+        active-surfel budget the bucket above the count bound after them;
+        with one the capacity, with the auto budget (-1) the budget from
+        the readbacks confirmed so far.  Logged in bucket_pick_log."""
         budget = self.config.active_surfel_budget
         if budget <= 0:          # both policies read the confirmed count
             self._drain_count_readbacks(
                 max(self.config.max_inflight_dispatches - 1, 0))
         params, n_eff = self.fusion_params, self._state.pack.shape[0]
         if budget == 0:
-            n_eff = self.shape_bucket_for(self._count_bound(1))
+            n_eff = self.shape_bucket_for(self._count_bound(frames))
         elif budget == -1:
             params = dataclasses.replace(
-                params, active_surfel_budget=self._auto_budget())
+                params, active_surfel_budget=self._auto_budget(frames))
         self._current_budget = params.active_surfel_budget
-        self.bucket_pick_log.append((1, n_eff))
+        self.bucket_pick_log.append((frames, n_eff))
         return params, n_eff
 
-    def _queue_count_readback(self) -> None:
+    def _queue_count_readback(self, frames: int) -> None:
         """Start the copy of (surfel_count, active_tile_count) to the host
-        without waiting for it (buckets or the auto budget)."""
+        without waiting for it (buckets or the auto budget), charged for
+        the dispatch's `frames` frames."""
         if self.config.active_surfel_budget > 0:
             return
         self._pending_counts.append(start_readback(torch.stack(
-            [self._state.surfel_count, self._state.active_tile_count])))
-        self._unconfirmed_frames += 1
+            [self._state.surfel_count, self._state.active_tile_count]))
+            + (frames,))
+        self._unconfirmed_frames += frames
 
     def _drain_count_readbacks(self, max_outstanding: int) -> None:
         """Consume the readbacks whose copy has completed, in dispatch
         order, and block on the oldest while more than max_outstanding
-        are unconfirmed."""
+        are unconfirmed.  A readback of `frames` frames gives the growth
+        sample ceil(growth / frames)."""
         pend = self._pending_counts
         while pend and (len(pend) > max_outstanding or pend[0][1] is None
                         or pend[0][1].query()):
-            values, event = pend.pop(0)
+            values, event, frames = pend.pop(0)
             if event is not None:
                 event.synchronize()
             new_count, active_tiles = values.tolist()
-            self._growth_window.append(new_count - self._confirmed_count)
+            self._growth_window.append(
+                (new_count - self._confirmed_count + frames - 1) // frames)
             del self._growth_window[:-4]
             self._confirmed_count = new_count
             self._lagged_active_tiles = active_tiles
-            self._unconfirmed_frames -= 1
+            self._unconfirmed_frames -= frames
 
     def _count_bound(self, frames: int = 0) -> int:
         """Upper bound on the surfel count after `frames` more frames: the
@@ -367,21 +487,32 @@ class ReconstructionPipeline:
         n_eff = -(-max(count_bound, 1) // step) * step
         return int(min(max(n_eff, step), self.config.max_surfel_count))
 
-    def _auto_budget(self) -> int:
-        """The auto budget: twice the lagged tile demand (or, before any
-        demand is seen, twice the count bound) on a power-of-2 tile
-        ladder, at least the creation frontier plus one tile, at most the
-        capacity.  A demand jump past the 2x headroom skips tiles
-        (skipped_tile_count) until the budget catches up."""
+    def _auto_budget(self, frames: int = 1) -> int:
+        """The auto budget of a dispatch of `frames` frames: twice the
+        lagged tile demand (or, before any demand is seen, twice the count
+        bound) on a power-of-2 tile ladder, at least the creation frontier
+        plus one tile, at most the capacity.  A demand jump past the 2x
+        headroom skips tiles (skipped_tile_count) until the budget catches
+        up.  A frame (frames 1) gets the JAX package's budget.  A chunk's
+        budget holds for all its frames while its readback lags the
+        unconfirmed ones too, so it adds a creation frontier's tiles for
+        each of those frames (and its seed counts them): the JAX
+        package's chunk adds nothing and skipped 24 tiles at 20m:-1 with
+        frame_chunk 4 in the port (ROADMAP queue 3 #10)."""
         ts = self.fusion_params.tile_size
-        cap = self.state.pack.shape[0]
+        cap = self._state.pack.shape[0]
         c_budget = min(self.fusion_params.max_creations_per_frame,
                        self.camera.width * self.camera.height)
         floor_tiles = c_budget // ts + 2
+        chunk = frames > 1
         if self._lagged_active_tiles > 0:
             want_tiles = 2 * self._lagged_active_tiles
+            if chunk:
+                want_tiles += (self._unconfirmed_frames + frames) * \
+                    -(-c_budget // ts)
         else:
-            want_tiles = -(-2 * max(self._count_bound(), 1) // ts)
+            want_tiles = -(-2 * max(self._count_bound(
+                frames if chunk else 0), 1) // ts)
         tiles = max(floor_tiles, want_tiles)
         tiles = 1 << (tiles - 1).bit_length()
         return int(min(tiles * ts, cap))
@@ -416,14 +547,20 @@ class ReconstructionPipeline:
                 .inverse().matrix3x4())
         return np.stack(transforms).astype(np.float32)
 
+    def _frame_pose_pack(self, video: RGBDVideo,
+                         frame_index: int) -> np.ndarray:
+        """The frame's transforms, poses and index as one f32 pose pack
+        (chunk.pose_pack)."""
+        return pose_pack(self._frame_transforms(video, frame_index),
+                         *self._frame_pose(video, frame_index), frame_index)
+
     def _stage_inputs(self, video: RGBDVideo, frame_index: int) -> tuple:
-        """The frame's inputs besides depth, on the device: (transforms,
-        (3,H,W) u8 color, t_gl, t_lg)."""
+        """The frame's inputs besides depth, on the device: (pose pack,
+        (3,H,W) u8 color)."""
         color = torch.from_numpy(self._frame_color(video, frame_index)) \
             .to(self.device)
-        t_gl, t_lg = self._frame_pose(video, frame_index)
-        return (self._to_device(self._frame_transforms(video, frame_index)),
-                color, self._to_device(t_gl), self._to_device(t_lg))
+        return self._to_device(self._frame_pose_pack(video, frame_index)), \
+            color
 
     def _frame_color(self, video: RGBDVideo, frame_index: int) -> np.ndarray:
         """This frame's color image as plane-major (3, H, W) u8,
@@ -467,7 +604,9 @@ class ReconstructionPipeline:
         return int(self.state.surfel_count)
 
     def block_until_ready(self) -> None:
-        """Wait until the device has finished every queued frame."""
+        """Run the deferred frames and wait until the device has finished
+        every queued frame."""
+        self._flush()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -478,7 +617,7 @@ class ReconstructionPipeline:
         """Stage every input of frames [start, stop) on the device ahead of
         the frame loop, the reference's untimed prefetch
         (main.cc:891-898, 902-984): the depth window, and for each fusable
-        frame its transforms, color and poses.  Processing a staged frame
+        frame its color and pose pack.  Processing a staged frame
         then copies nothing from the host; frame retirement frees what
         was staged."""
         cfg = self.config
@@ -492,8 +631,10 @@ class ReconstructionPipeline:
                 self._staged_inputs[i] = self._stage_inputs(video, i)
 
     def drain(self) -> None:
-        """Consume every outstanding count readback and wait for the
-        device: a dispatch barrier for benchmarks and teardown."""
+        """Run the deferred frames, consume every outstanding count
+        readback and wait for the device: a dispatch barrier for
+        benchmarks and teardown."""
+        self._flush()
         self._drain_count_readbacks(0)
         self.block_until_ready()
 
@@ -505,17 +646,18 @@ class ReconstructionPipeline:
         a benchmark re-runs its timed region from it.  The copy survives
         the bucketed frames that write the map in place."""
         self.drain()
-        return (_clone_state(self.state), self._confirmed_count,
+        return (clone_state(self.state), self._confirmed_count,
                 self._lagged_active_tiles, list(self._growth_window),
                 self._last_snap_frame, self.snapshot_rows_shipped)
 
     def restore_dispatch_state(self, snap: tuple) -> None:
         """Restore a snapshot_dispatch_state copy.  The map is copied
-        again, so one snapshot can be restored more than once."""
+        again (into the map's own tensors while chunk graphs write them),
+        so one snapshot can be restored more than once."""
         self.drain()
         state, self._confirmed_count, self._lagged_active_tiles, growth, \
             self._last_snap_frame, self.snapshot_rows_shipped = snap
-        self._state = _clone_state(state)
+        self._adopt(state, copy=True)
         self._growth_window = list(growth)
         self._unconfirmed_frames = 0
 
@@ -583,6 +725,8 @@ class ReconstructionPipeline:
     def log_frame_timings(self, frame_index: int) -> None:
         """Append one reference-format per-frame timings line
         (main.cc:1531-1545); the values are host times (module
-        docstring)."""
+        docstring).  The count is read first: it runs the deferred frames,
+        whose flush sets the stage times the line reports."""
+        count = self.surfel_count()
         self.timings_log_lines.append(format_frame_timings_line(
-            frame_index, self._last_stage_ms, self.surfel_count()))
+            frame_index, self._last_stage_ms, count))

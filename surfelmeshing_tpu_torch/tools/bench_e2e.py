@@ -12,23 +12,26 @@ tool does with --use_shape_buckets; -1 the auto active-set budget, N a
 fixed one.
 
 Drives ReconstructionPipeline as the port's bench.py does (untimed
-prefetch and warm-up) and adds the asynchronous meshing thread, paced the
+prefetch and warm-up, frame_chunk=CHUNK: on the card one CUDA-graph
+replay a chunk) and adds the asynchronous meshing thread, paced the
 reference's way: a snapshot is submitted at every 4th timed frame when
 the mesher is idle (main.cc:1235-1254), full the first time and then only
 the changed rows.  The timed region is the frame loop including snapshot
 submission, ending when the device has finished; the mesher trails, and
-its final drain is untimed.  A library built (ops/cuda_build.py) inside
-the timed region invalidates the attempt: it is re-run once from a
-snapshot of the dispatch state with a fresh mesher seeded by an untimed
-full snapshot, as the JAX tool does for an XLA compile.
+its final drain is untimed.  A library built (ops/cuda_build.py) or a
+CUDA graph captured inside the timed region invalidates the attempt: it
+is re-run once from a snapshot of the dispatch state with a fresh mesher
+seeded by an untimed full snapshot, as the JAX tool does for an XLA
+compile.
 
 Prints one JSON line per config with the JAX tool's keys;
 compiles_in_timed_region counts nvcc / g++ builds.  Added counters of the
-run: peak_mib (peak device memory allocated, null on the CPU),
+run: graph_captures (CUDA graphs captured in the reported timed region),
+peak_mib (peak device memory allocated, null on the CPU),
 skipped_tiles (tiles past the active budget in the final state),
 fused_frames and blend_launches (launches of csrc/blend.cu; 0 on the
 CPU, where blending runs its plain version) and, for BUDGET 0,
-bucket_picks (the timed frames' n_eff).  The device defaults to cuda and
+bucket_picks (the timed chunks' n_eff).  The device defaults to cuda and
 the tool fails without a GPU.
 """
 
@@ -64,6 +67,7 @@ def run_config(cfg_str: str, video, device, step: int = 65_536) -> dict:
         shape_bucket_step=step,
         max_creations_per_frame=2**15,
         active_surfel_budget=budget,
+        frame_chunk=CHUNK,
         restrict_fps_to=0,
     )
     if device.type == "cuda":
@@ -94,6 +98,8 @@ def run_config(cfg_str: str, video, device, step: int = 65_536) -> dict:
 
     for attempt in range(2):
         builds_before = cuda_build.builds
+        captures_before = pipe.graph_captures
+        picks_before = len(pipe.bucket_pick_log)
         rows_before = pipe.snapshot_rows_shipped
         snaps = 0
         t0 = time.perf_counter()
@@ -107,11 +113,12 @@ def run_config(cfg_str: str, video, device, step: int = 65_536) -> dict:
         pipe.drain()
         elapsed = time.perf_counter() - t0
         built = cuda_build.builds - builds_before
-        if built == 0:
+        captured = pipe.graph_captures - captures_before
+        if built == 0 and captured == 0:
             break
-        print(f"bench_e2e[{cfg_str}]: {built} build(s) in the timed region "
-              f"(attempt {attempt + 1}); re-running from snapshot",
-              file=sys.stderr)
+        print(f"bench_e2e[{cfg_str}]: {built} build(s) and {captured} graph "
+              f"capture(s) in the timed region (attempt {attempt + 1}); "
+              f"re-running from snapshot", file=sys.stderr)
         pipe.restore_dispatch_state(snap)
         pipe.prefetch_inputs(video, timed[0], hi)
         mesher.finish()
@@ -122,8 +129,9 @@ def run_config(cfg_str: str, video, device, step: int = 65_536) -> dict:
                                snap_frame)
         mesher.drain()
     else:
-        print(f"bench_e2e[{cfg_str}]: WARNING: builds persisted across the "
-              "re-run; the number is polluted", file=sys.stderr)
+        print(f"bench_e2e[{cfg_str}]: WARNING: builds or graph captures "
+              "persisted across the re-run; the number is polluted",
+              file=sys.stderr)
 
     mesher.drain()
     tris = int(mesher.engine.triangle_count)
@@ -138,12 +146,13 @@ def run_config(cfg_str: str, video, device, step: int = 65_536) -> dict:
         "triangles": tris,
         "surfels": pipe.surfel_count(),
         "compiles_in_timed_region": built,
+        "graph_captures": captured,
         "peak_mib": peak_mib(device),
         "skipped_tiles": int(pipe.state.skipped_tile_count),
         "fused_frames": fused,
         "blend_launches": blend.blend_core.launches - launches,
         **({"bucket_picks": [n for _, n in
-                             pipe.bucket_pick_log[-len(timed):]]}
+                             pipe.bucket_pick_log[picks_before:]]}
            if budget == 0 else {}),
     }
 

@@ -57,9 +57,11 @@ class MeshProbe:
     def _poll(self) -> None:
         while not self._done.is_set():
             try:
-                self.served.update(html=fetch(self.port, "/"),
-                                   version=fetch(self.port, "/version"),
-                                   mesh=fetch(self.port, "/mesh"))
+                # /mesh before /version: the server bumps both under one
+                # lock, so the version read after a mesh is never older.
+                mesh = fetch(self.port, "/mesh")
+                self.served.update(html=fetch(self.port, "/"), mesh=mesh,
+                                   version=fetch(self.port, "/version"))
                 if self.vertices() > 0:
                     return
             except OSError:

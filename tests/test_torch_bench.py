@@ -218,8 +218,10 @@ def test_bench_smoke_check_on_the_cpu():
     assert run.returncode == 0, run.stderr[-4000:]
     lines = [json.loads(line) for line in run.stdout.splitlines()]
     assert lines[-1]["metric"] == "SMOKE_fusion_fps_640x480_500k"
-    assert set(lines[-1]) == {"metric", "value", "unit", "vs_baseline"}
+    assert set(lines[-1]) == {"metric", "value", "unit", "vs_baseline",
+                              "graph_captures"}
     assert lines[-1]["value"] > 0
+    assert lines[-1]["graph_captures"] == 0        # no graphs on the CPU
     assert lines[0]["smoke_check"] == {"count_equal": True,
                                        "pack_equal": True,
                                        "max_abs_diff": 0.0}

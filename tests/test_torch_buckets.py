@@ -123,18 +123,23 @@ def test_bucketed_matches_jax_and_full_shape(frames, n_eff):
 
 def test_full_bucket_takes_the_tiled_path(frames):
     """n_eff at the capacity with budget 4096 in 256-row tiles runs
-    integrate_frame's tiled path and leaves the input unmodified."""
+    integrate_frame's tiled path, its tiles written into the input's
+    tensors: the input is consumed, as on every bucketed route."""
     params, seq, state = frames
     i, inputs = seq[4]
     tiled = dataclasses.replace(params, active_surfel_budget=4096,
                                 tile_size=256)
     before = clone(state)
     want = TF.integrate_frame(state, *inputs, i, tiled)
-    got = TF.integrate_frame_bucketed(state, *inputs, i, tiled, CAP)
+    assert_bit_identical(state, before)              # not modified
+    consumed = clone(state)
+    got = TF.integrate_frame_bucketed(consumed, *inputs, i, tiled, CAP)
     assert 0 < int(got.active_tile_count) < CAP // 256
     assert_bit_identical(got, want, counters=COUNTERS + (
         "skipped_tile_count", "active_tile_count"))
-    assert_bit_identical(state, before)
+    for name in ("pack", "neighbors", "nbr_dist"):
+        assert getattr(got, name).data_ptr() == \
+            getattr(consumed, name).data_ptr(), name
 
 
 def test_binding_bucket_defers_without_overflow(frames):
