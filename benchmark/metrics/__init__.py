@@ -1,0 +1,7 @@
+"""Per-layer metric readers, one file each, named as the metric in
+BENCHMARK.json.  Each defines read(ctx) -> float or None; None (nothing
+to read in this run) leaves the metric out of the result line.
+
+ctx keys: "window" (cell.Window of the measured window), "trace" (the
+traced stretch's devtrace summary, or None), "frame_shape" (H, W),
+"peaks" (peaks.json)."""
