@@ -200,6 +200,7 @@ from surfelmeshing_tpu_torch.tools import (bench_configs, bench_e2e,
 from surfelmeshing_tpu_torch.tools.blend_timing import \
     seeded_maps as random_maps
 from surfelmeshing_tpu_torch.utils.se3 import SE3
+from surfelmeshing_tpu_torch.utils.timing import COLUMNS
 from surfelmeshing_tpu_torch.viewer import renderer as R
 from surfelmeshing_tpu_torch.viewer.probe import (MeshProbe, free_port,
                                                   port_is_free)
@@ -663,9 +664,9 @@ def phase_exact(device, video, slice_run) -> None:
 
 def staged_means(run) -> dict:
     """Per-phase ms of a run with log_timings_staged: the mean of its timed
-    frames' columns (preprocessing and F.COLUMNS)."""
+    frames' columns (preprocessing and COLUMNS)."""
     lines = run["pipe"].timings_log_lines[-run["timed"]:]
-    cols = {name: [] for name in ("preprocessing",) + F.COLUMNS}
+    cols = {name: [] for name in ("preprocessing",) + COLUMNS}
     for line in lines:
         words = line.split()
         values = dict(zip(words[0::2], words[1::2]))
@@ -693,17 +694,17 @@ def phase_staged(device, video, slice_run) -> dict:
         pipe = run["pipe"]
         mean = staged_means(run)
         means.setdefault("500k", mean)
-        fusion = sum(mean[name] for name in F.COLUMNS)
+        fusion = sum(mean[name] for name in COLUMNS)
         frame = sum(run["frame_ms"][-run["timed"]:]) / run["timed"]
         skipped = int(pipe.state.skipped_tile_count)
         print(f"[staged] {label}: per-phase ms, mean of {run['timed']} "
               f"frames after {WARMUP_FRAMES} warm-up (CUDA events): " +
-              ", ".join(f"{name} {mean[name]:.3f}" for name in F.COLUMNS) +
+              ", ".join(f"{name} {mean[name]:.3f}" for name in COLUMNS) +
               f"; sum {fusion:.3f} against {frame:.3f} ms for the whole "
-              f"frame (CUDA events, preprocessing included; host "
+              f"frame (CUDA events, preprocessing included; "
               f"preprocessing {mean['preprocessing']:.3f} ms); "
               f"{skipped} skipped tiles")
-        check(all(mean[name] > 0 for name in F.COLUMNS),
+        check(all(mean[name] > 0 for name in COLUMNS),
               f"[staged] {label}: a column is always zero")
         check(skipped == 0, f"[staged] {label}: {skipped} tiles skipped")
         check(states_equal(live_state(pipe.state), slice_run["state"]),

@@ -24,7 +24,12 @@ run; the server is closed when run() returns.
 
 --profile_dir writes a torch.profiler trace of the frame loop (CPU and,
 on a CUDA device, CUDA activities) as DIR/trace.json, the counterpart of
-the JAX application's jax.profiler trace.
+the JAX application's jax.profiler trace; the port's tracer
+(utils/timing.tracer) is on, and each of its spans is a range there.
+--log_timings turns the tracer on too: the meshing thread's timings lines
+(timings_cpu.txt) are made from its spans.  With either flag the run ends
+with a log of the tracer's spans by name (host, wait and device spans:
+utils/timing.trace_report) and of its counters.
 
 --frame_chunk K defers frames and runs them K at a time (pipeline.py):
 on the card each power-of-2 sub-chunk is one CUDA-graph replay.  Every
@@ -57,6 +62,7 @@ from ..ops.preprocess import sqrt_f32
 from ..pipeline import ReconstructionPipeline
 from ..utils.se3 import SE3
 from ..utils.spline import KeyframePath, read_keyframes, write_keyframes
+from ..utils.timing import trace_report, tracer
 from ..viewer.live import LiveViewerServer
 from ..viewer.renderer import Renderer, save_png, surfel_colors
 
@@ -372,6 +378,21 @@ def _write_outputs(cfg, pipe, mesher, last_frame, recorded_keyframes):
 
 
 @contextlib.contextmanager
+def _traced(cfg):
+    """--log_timings and --profile_dir: the tracer on over the enclosed
+    run (with --profile_dir each span is also a profiler range); logs its
+    report when the run ends."""
+    if not (cfg.log_timings or cfg.profile_dir):
+        yield
+        return
+    tracer.start(profile=bool(cfg.profile_dir))
+    try:
+        yield
+    finally:
+        logger.info("%s", trace_report(tracer.stop()))
+
+
+@contextlib.contextmanager
 def _profiled(profile_dir, device):
     """--profile_dir: a torch.profiler trace of the enclosed frame loop,
     written to <profile_dir>/trace.json when the loop ends."""
@@ -481,7 +502,7 @@ def run(cfg: SurfelMeshingConfig, device) -> int:
 
     mesher = None
     try:
-        mesher = MeshingDriver(cfg, log_timings=bool(cfg.log_timings))
+        mesher = MeshingDriver(cfg)
     except (ImportError, OSError) as exc:
         logger.warning("meshing engine unavailable (%s); "
                        "running fusion only", exc)
@@ -497,8 +518,9 @@ def run(cfg: SurfelMeshingConfig, device) -> int:
     live = _LivePublisher(cfg, pipe, mesher) if cfg.live_viewer_port \
         else None
     try:
-        return _run_loop(cfg, video, pipe, mesher, resume_frame,
-                         playback_path, video_writer, live, device)
+        with _traced(cfg):
+            return _run_loop(cfg, video, pipe, mesher, resume_frame,
+                             playback_path, video_writer, live, device)
     finally:
         if live is not None:
             live.close()

@@ -46,7 +46,9 @@ import torch
 
 from .ops import blend
 from .ops import preprocess as pp
-from .ops.fusion import FusionParams, SurfelState, integrate_frame_bucketed
+from .ops.fusion import (FusionParams, StageTimer, SurfelState,
+                         integrate_frame_bucketed)
+from .utils.timing import stream_sync, tracer
 
 STATE_FIELDS = tuple(f.name for f in dataclasses.fields(SurfelState))
 COUNTERS = STATE_FIELDS[3:]
@@ -77,10 +79,12 @@ class ChunkEntry:
     """One deferred frame's inputs: its depth window ([reference, K
     others] device tensors, kept alive past the window's retirement), its
     (3,H,W) u8 color and its pose pack, each a device tensor when
-    prefetched, else a host array."""
+    prefetched, else a host array; and its frame index (the id of its
+    spans)."""
     depths: list
     color: object
     pose: object
+    index: int
 
 
 def _same_tensors(a: SurfelState, b: SurfelState) -> bool:
@@ -144,9 +148,17 @@ class ChunkStep:
 
     def run(self, state: SurfelState, entries: list, params: FusionParams,
             n_eff: int) -> None:
-        """Fuse the entries' frames into `state`, in place."""
+        """Fuse the entries' frames into `state`, in place.  Traced as the
+        spans chunk.stage, chunk.capture and chunk.replay (with the device
+        span dev.chunk.replay), each with the last frame's index."""
         size = len(entries)
+        traced = tracer.on
+        last = entries[-1].index
+        if traced:
+            tracer.begin("chunk.stage", last)
         self._stage(entries)
+        if traced:
+            tracer.end()
         if not self.graphs_for(params):
             if self.device.type == "cuda" and not self._eager_logged:
                 self._eager_logged = True
@@ -162,9 +174,21 @@ class ChunkStep:
         self._bound = state
         key = (size, n_eff, params)
         if key not in self._graphs:
+            if traced:
+                tracer.begin("chunk.capture", last)
             self._graphs[key] = self._capture(state, size, params, n_eff)
+            if traced:
+                tracer.end()
         graph, counts = self._graphs[key]
+        if traced:
+            tracer.begin("chunk.replay", last)
+            timer = StageTimer(self.device)
+            timer("chunk.replay")
         graph.replay()
+        if traced:
+            timer(None)
+            tracer.end()
+            tracer.device(timer, "dev.", last)
         blend.set_launch_counts(tuple(
             a + b for a, b in zip(blend.launch_counts(), counts)))
         self.replays += 1
@@ -198,8 +222,11 @@ class ChunkStep:
                 torch.stack(items, out=buf[:s])
                 continue
             for j, x in enumerate(items):
-                buf[j].copy_(x if isinstance(x, torch.Tensor)
-                             else self._host(x), non_blocking=True)
+                if not isinstance(x, torch.Tensor):
+                    x = self._host(x)
+                    if tracer.on:
+                        tracer.h2d(x)
+                buf[j].copy_(x, non_blocking=True)
 
     # -- the chunk body -------------------------------------------------
 
@@ -242,6 +269,8 @@ class ChunkStep:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
+        if tracer.on:             # torch.cuda.graph synchronises first
+            tracer.wait("capture", block=stream_sync(self.device))
         before = blend.launch_counts()
         with torch.cuda.graph(graph, pool=self._pool,
                               capture_error_mode="thread_local"):

@@ -5,6 +5,14 @@ Mirrors the reference's AsynchronousMeshing thread
 surfel snapshots (integrate -> check remeshing -> triangulate -> publish
 indices), decoupled from the fusion cadence; the pipeline only submits a new
 snapshot when the mesher is idle or about to finish (main.cc:1235-1254).
+
+While the tracer (utils/timing.tracer) is on, each iteration records the
+span mesher.iteration (thread "mesher", id the batch's last frame) with
+children mesher.integrate, mesher.remesh, mesher.triangulate and
+mesher.publish; the end of mesher.publish is when the mesh was published.
+Each traced iteration also appends the reference's meshing-thread timings
+lines (timings_log_lines), made from those spans: the app turns the tracer
+on for --log_timings and writes them to timings_cpu.txt.
 """
 
 from __future__ import annotations
@@ -16,11 +24,12 @@ from typing import Optional, Tuple
 import numpy as np
 
 from ..io.mesh_io import write_obj
+from ..utils.timing import tracer
 from .engine import MeshingEngine
 
 
 class MeshingDriver:
-    def __init__(self, config=None, log_timings: bool = False):
+    def __init__(self, config=None):
         kwargs = {}
         if config is not None:
             kwargs = dict(
@@ -39,8 +48,7 @@ class MeshingDriver:
                 max_surfels_per_node=config.max_surfels_per_node,
             )
         self.engine = MeshingEngine(**kwargs)
-        self._log_timings = log_timings
-        self.timings_log_lines = []
+        self.timings_log_lines = []    # of traced iterations
 
         # Pending-snapshot queue consumed under the lock (the reference's
         # CUDASurfelsCPU double buffer holds ONE full snapshot and lets a
@@ -57,7 +65,8 @@ class MeshingDriver:
         self._latest_duration = 0.0
         self._latest_start = time.monotonic()
 
-        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread = threading.Thread(target=self._loop, name="mesher",
+                                        daemon=True)
         self._thread.start()
 
     # -- producer side ------------------------------------------------------
@@ -109,51 +118,67 @@ class MeshingDriver:
                 self._busy = True
                 self._latest_start = time.monotonic()
 
-            t0 = time.monotonic()
-            for tagged, frame_index in batch:
-                if tagged[0] == "full":
-                    _, positions, radii_sq, normals, stamps, count = tagged
-                    count = int(count)
-                    self.engine.integrate(
-                        frame_index, np.asarray(positions)[:count],
-                        np.asarray(radii_sq)[:count],
-                        np.asarray(normals)[:count],
-                        np.asarray(stamps)[:count])
-                else:
-                    (_, indices, positions, radii_sq, normals, stamps,
-                     count) = tagged
-                    count = int(count)
-                    self.engine.integrate_delta(
-                        frame_index, np.asarray(indices),
-                        np.asarray(positions), np.asarray(radii_sq),
-                        np.asarray(normals), np.asarray(stamps), count)
             frame_index = batch[-1][1]
+            traced = tracer.on
+            if traced:
+                tracer.begin("mesher.iteration", frame_index)
+                tracer.begin("mesher.integrate", frame_index)
+            self._integrate(batch)
             count = int(self.engine.surfel_count)
-            t1 = time.monotonic()
+            if traced:
+                integrate_s = tracer.end()
+                tracer.begin("mesher.remesh", frame_index)
             self.engine.check_remeshing()
-            t2 = time.monotonic()
+            if traced:
+                remesh_s = tracer.end()
+                tracer.begin("mesher.triangulate", frame_index)
             self.engine.triangulate()
-            t3 = time.monotonic()
+            if traced:
+                triangulate_s = tracer.end()
+                tracer.begin("mesher.publish", frame_index)
             tris = self.engine.get_triangles()
 
             with self._output_lock:
                 self._output = (frame_index, count, tris)
+            if traced:
+                tracer.end()
+                tracer.end()
             with self._input_lock:
                 self._busy = False
                 self._latest_duration = time.monotonic() - self._latest_start
 
-            if self._log_timings:
+            if traced:
                 # Reference meshing-thread log format
                 # (asynchronous_meshing.cc:127-134).
                 self.timings_log_lines += [
                     f"frame {frame_index}",
-                    f"-remeshing {1000 * (t2 - t1):f}",
-                    f"-meshing {1000 * (t3 - t2):f}",
-                    f"-synchronization {1000 * (t1 - t0):f}",
+                    f"-remeshing {1000 * remesh_s:f}",
+                    f"-meshing {1000 * triangulate_s:f}",
+                    f"-synchronization {1000 * integrate_s:f}",
                     f"-triangle_count {self.engine.triangle_count}",
                     f"-deleted_triangle_count "
                     f"{self.engine.deleted_triangle_count}",
                 ]
+
+    def _integrate(self, batch) -> None:
+        """Feed the batch's snapshots to the engine, in order."""
+        for tagged, frame_index in batch:
+            if tagged[0] == "full":
+                _, positions, radii_sq, normals, stamps, count = tagged
+                count = int(count)
+                self.engine.integrate(
+                    frame_index, np.asarray(positions)[:count],
+                    np.asarray(radii_sq)[:count],
+                    np.asarray(normals)[:count],
+                    np.asarray(stamps)[:count])
+            else:
+                (_, indices, positions, radii_sq, normals, stamps,
+                 count) = tagged
+                count = int(count)
+                self.engine.integrate_delta(
+                    frame_index, np.asarray(indices),
+                    np.asarray(positions), np.asarray(radii_sq),
+                    np.asarray(normals), np.asarray(stamps), count)
 
     # -- shutdown -----------------------------------------------------------
 

@@ -37,7 +37,6 @@ import torch
 import torch.distributed as dist
 
 from .. import resolve_device
-from ..utils.timing import COLUMNS
 from .blend import blend_core
 from .preprocess import sqrt_f32, to_i32_trunc
 
@@ -388,43 +387,79 @@ def _transform(T: torch.Tensor, x, y, z, translate: bool = True):
 
 class StageTimer:
     """Per-phase times of one fusion step under the reference's
-    --log_timings columns (COLUMNS; main.cc:1531-1545), the counterpart of
-    the reference's per-phase cudaEvent brackets
-    (cuda_surfel_reconstruction.cc:112-320).
+    --log_timings columns (utils/timing.COLUMNS; main.cc:1531-1545), the
+    counterpart of the reference's per-phase cudaEvent brackets
+    (cuda_surfel_reconstruction.cc:112-320), and the device half of the
+    tracer (utils/timing.py), which takes the timers of preprocessing
+    passes, fusion phases and chunk replays as device spans.
 
     The step calls the instance at each phase boundary with the column
     that starts there (None closes the last).  On a CUDA device a boundary
-    records a CUDA event on the current stream, and stage_ms() reads the
-    elapsed times after one synchronisation; on the CPU, where every op
-    runs to completion before it returns, it reads the host clock.  This
-    brackets the real step: the JAX package re-runs a non-donating probe
-    step under jax.profiler and attributes traced device time to the
-    columns instead, a TPU workaround with no counterpart here.  Work
-    outside the eight phases (the tiling of _integrate_tiled) falls in no
-    column, as in the JAX package."""
+    records a CUDA event on the current stream, read once the device has
+    passed it (done()); nothing here synchronises.  On the CPU, where
+    every op runs to completion before it returns, it reads the host
+    clock.  This brackets the real step: the JAX package re-runs a
+    non-donating probe step under jax.profiler and attributes traced
+    device time to the columns instead, a TPU workaround with no
+    counterpart here.  Work outside the eight phases (the tiling of
+    _integrate_tiled) falls in no column, as in the JAX package.
+
+    A timer's CUDA events go back to a free list of their device when the
+    timer is dropped, for the next timers: creating and destroying an
+    event costs the host about ten times as much as recording one."""
+
+    _free = {}                  # device index -> reusable CUDA events
 
     def __init__(self, device):
-        self.cuda = torch.device(device).type == "cuda"
+        self.device = torch.device(device)
+        self.cuda = self.device.type == "cuda"
         self._marks = []        # (column opened here or None, event / s)
+        if self.cuda:
+            if self.device.index is None:
+                self.device = torch.device("cuda",
+                                           torch.cuda.current_device())
+            self._stream = torch.cuda.current_stream(self.device)
+            self._events = StageTimer._free.setdefault(self.device.index, [])
 
     def __call__(self, column: Optional[str]) -> None:
         if self.cuda:
-            mark = torch.cuda.Event(enable_timing=True)
-            mark.record()
+            mark = self._events.pop() if self._events else \
+                torch.cuda.Event(enable_timing=True)
+            mark.record(self._stream)
         else:
             mark = time.perf_counter()
         self._marks.append((column, mark))
 
-    def stage_ms(self) -> dict:
-        """{column: ms} summed over the segments of each column (integration
-        has two), every column present; waits for the device once."""
-        out = dict.fromkeys(COLUMNS, 0.0)
+    def __del__(self):
+        if self.cuda:
+            self._events.extend(mark for _, mark in self._marks)
+
+    def done(self) -> bool:
+        """Whether the device has passed every mark (always on the CPU)."""
+        return not self.cuda or not self._marks or self._marks[-1][1].query()
+
+    def synchronize(self) -> None:
+        """Wait until the device has passed every mark."""
         if self.cuda and self._marks:
             self._marks[-1][1].synchronize()
-        for (column, begin), (_, end) in zip(self._marks, self._marks[1:]):
-            if column is not None:
-                out[column] += begin.elapsed_time(end) if self.cuda else \
-                    1000.0 * (end - begin)
+
+    def segments(self, ref) -> list:
+        """(column, start, end) of each segment, in seconds after `ref`: a
+        CUDA event the device passed before the first mark, or on the CPU
+        a host time.  The device must have passed every mark."""
+        at = [(column, ref.elapsed_time(mark) / 1000.0 if self.cuda
+               else mark - ref) for column, mark in self._marks]
+        return [(column, s, e) for (column, s), (_, e) in zip(at, at[1:])
+                if column is not None]
+
+    def stage_ms(self) -> dict:
+        """{column: ms} summed over the segments of each column (integration
+        has two).  The device must have passed every mark: the pipeline
+        reads it after the timings line's surfel count, which waits."""
+        out = {}
+        if self._marks:
+            for column, s, e in self.segments(self._marks[0][1]):
+                out[column] = out.get(column, 0.0) + 1000.0 * (e - s)
         return out
 
 
@@ -1489,7 +1524,9 @@ def meshing_snapshot(state: SurfelState):
 
 
 def meshing_snapshot_delta(state: SurfelState, last_snap_frame: int,
-                           window: int):
+                           window: int,
+                           before_size_read: Optional[Callable[[], None]]
+                           = None):
     """Changed-rows snapshot for the meshing engine: index and payload of
     the live rows that can have changed since the snapshot taken at
     `last_snap_frame` (the JAX package's rule):
@@ -1502,14 +1539,17 @@ def meshing_snapshot_delta(state: SurfelState, last_snap_frame: int,
     Returns (indices int32, positions (m, 3), radii_sq (m,), normals
     (m, 3), stamps int32 (m,), m, surfel_count) on the state's device, all
     m dirty rows in ascending index order.  Sizing the result by m reads
-    the count on the host (a synchronisation); the JAX package's
-    fixed-size `max_rows` bucket has no counterpart."""
+    the count on the host (a synchronisation), just after
+    `before_size_read()` where given; the JAX package's fixed-size
+    `max_rows` bucket has no counterpart."""
     pack = state.pack
     n = pack.shape[0]
     live = torch.arange(n, dtype=torch.int32, device=pack.device) < \
         state.surfel_count
     dirty = live & ((update_stamps(state) >= last_snap_frame + 1 - window) |
                     (pack[:, RAD] < 0))
+    if before_size_read is not None:
+        before_size_read()
     rows = torch.nonzero(dirty).squeeze(1)
     # Rows move as int32 bits, never through float arithmetic.
     bits = pack.view(torch.int32)[rows]

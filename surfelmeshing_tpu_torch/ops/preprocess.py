@@ -476,6 +476,12 @@ def downscale_median_excluding(depth: torch.Tensor,
     return torch.where(count > 0, median, 0)
 
 
+# The five passes of preprocess_frame, in order, under the JAX pipeline's
+# --debug_depth_preprocessing names (on_stage).
+PASSES = ("1_bilateral", "2_outlier_filtered", "3_eroded",
+          "4_bad_normals_dropped", "5_isolated_removed")
+
+
 def preprocess_frame(
     depth: torch.Tensor,
     other_depths: torch.Tensor,
@@ -510,18 +516,18 @@ def preprocess_frame(
     d = bilateral_filter_and_cutoff(
         depth, sigma_xy, sigma_value_factor, radius_factor,
         max_depth_u16, depth_valid_region_radius)
-    stage("1_bilateral", d)
+    stage(PASSES[0], d)
     d = outlier_depth_map_fusion(
         d, other_depths, others_T_reference, fx, fy, cx, cy,
         tolerance, required_inliers)
-    stage("2_outlier_filtered", d)
+    stage(PASSES[1], d)
     d = erode_depth(d, erosion_radius)
-    stage("3_eroded", d)
+    stage(PASSES[2], d)
     d, normals_xy = compute_normals_and_drop_bad_pixels(
         d, observation_angle_threshold_deg, depth_scaling, fx, fy, cx, cy)
-    stage("4_bad_normals_dropped", d)
+    stage(PASSES[3], d)
     d, radius_sq = compute_point_radii_and_remove_isolated(
         d, point_radius_extension_factor, point_radius_clamp_factor,
         depth_scaling, fx, fy, cx, cy)
-    stage("5_isolated_removed", d)
+    stage(PASSES[4], d)
     return d, normals_xy, radius_sq

@@ -52,11 +52,26 @@ max_inflight_dispatches - 1 are outstanding, the JAX package's throttle.
 Assigning `state` (a loaded checkpoint) restarts both from the new map's
 count.
 
-Stage timings are host times around eager calls that return before the
-device finishes; a snapshot reads the device and so includes the wait for
-the frames queued before it.  With log_timings and log_timings_staged set,
-the fusion phases are timed on the device instead (fusion.StageTimer, one
-synchronisation a frame), under the reference's per-phase columns.
+Stage timings (the Timing tags of the app's report and the timings
+line's host columns) are host times around eager calls that return
+before the device finishes: preprocessing the launch of preprocess_frame,
+integration from there to the end of the fusion step's launch (or a
+flush's), surfel_transfer a snapshot, which reads the device and so
+includes the wait for the frames queued before it.  With log_timings and
+log_timings_staged set, preprocessing and the fusion phases are timed on
+the device instead (fusion.StageTimer, read when the timings line waits
+for the count), under the reference's per-phase columns.
+
+While the tracer (utils/timing.tracer) is on, the frame loop records the
+spans frame (input.depth, input.stage, preprocess, dispatch.pick, fusion,
+flush), flush (chunk.stage, chunk.capture, chunk.replay), drain and
+snapshot (snapshot.select, snapshot.copy); preprocess, fusion, flush and
+snapshot share their clock readings with the stage timings.
+wait.upload, wait.readback, wait.drain and wait.snapshot cover the host
+blocked on the card: a blocking upload runs as a copy enqueued and then
+that wait, and a snapshot waits where its size read would, after the
+selection's launches.  Each per-frame step hands the tracer the device
+times of the five preprocessing passes and the fusion phases.
 debug_depth_preprocessing saves each preprocessing pass as a PNG under
 ./debug_preprocessing, as the JAX pipeline does.
 
@@ -85,13 +100,19 @@ from .chunk import (ChunkEntry, ChunkStep, clone_state, pose_pack,
 from .config import SurfelMeshingConfig
 from .io.mesh_io import write_ply
 from .io.tum import RGBDVideo
+from .ops import blend, cuda_build
 from .ops import preprocess as pp
 from .ops.fusion import (FusionParams, StageTimer, SurfelState,
                          create_surfel_state, export_vertices,
                          integrate_frame_bucketed, meshing_snapshot,
                          meshing_snapshot_delta, normals)
 from .utils.camera import PinholeCamera
-from .utils.timing import Timing, format_frame_timings_line
+from .utils.timing import (COLUMNS, Timing, format_frame_timings_line,
+                           stream_sync, tracer)
+
+# The pass that follows each preprocessing pass (None after the last): the
+# column a pass's on_stage call opens in its StageTimer.
+_NEXT_PASS = dict(zip(pp.PASSES, pp.PASSES[1:] + (None,)))
 
 
 def start_readback(values: torch.Tensor) -> tuple:
@@ -195,6 +216,9 @@ class ReconstructionPipeline:
         self.timing = Timing()
         self.timings_log_lines = []
         self._last_stage_ms: Dict[str, float] = {}
+        # log_timings_staged: the last frame's (preprocessing, fusion)
+        # StageTimers, read by log_frame_timings.
+        self._staged_timers = None
         # Resident depth-frame window keyed by frame index, mirroring
         # frame_index_to_depth_buffer (main.cc:904-968).
         self._depth_buffers: Dict[int, torch.Tensor] = {}
@@ -217,6 +241,7 @@ class ReconstructionPipeline:
         self._current_budget = config.active_surfel_budget
         # (frames, n_eff) of every dispatch: a frame, or a sub-chunk.
         self.bucket_pick_log = []
+        tracer.watch(self)
 
     @property
     def state(self) -> SurfelState:
@@ -279,6 +304,18 @@ class ReconstructionPipeline:
         """(frames, n_eff, active_surfel_budget) of each capture."""
         return list(self._chunk.keys) if self._chunk else []
 
+    def trace_counters(self) -> dict:
+        """The counters the tracer reports (utils/timing.py), read where
+        they live: this pipeline's and the process's blending launches and
+        kernel builds."""
+        return {"graph_captures": self.graph_captures,
+                "graph_replays": self.graph_replays,
+                "bucket_picks": len(self.bucket_pick_log),
+                "snapshots": self.snapshot_count,
+                "snapshot_rows_shipped": self.snapshot_rows_shipped,
+                "blend_launches": blend.blend_core.launches,
+                "kernel_builds": cuda_build.builds}
+
     def _log_device_memory(self) -> None:
         """Device memory report at init (cudaMemGetInfo, main.cc:859-869)."""
         if self.device.type != "cuda":
@@ -294,11 +331,17 @@ class ReconstructionPipeline:
         if frame_index in self._depth_buffers or \
            frame_index >= video.frame_count:
             return
+        traced = tracer.on
+        if traced:
+            tracer.begin("input.depth", frame_index)
         depth = np.asarray(video.depth_frames[frame_index].get_image())
-        d = torch.from_numpy(depth.astype(np.int32)).to(self.device)
+        d = self._upload(torch.from_numpy(depth.astype(np.int32)),
+                         frame_index)
         for _ in range(self.config.median_filter_and_densify_iterations):
             d = pp.median_filter_and_densify(d)
         self._depth_buffers[frame_index] = d
+        if traced:
+            tracer.end()
 
     def _retire_depth(self, frame_index: int) -> None:
         """Frame retirement (main.cc:1656-1667)."""
@@ -311,7 +354,18 @@ class ReconstructionPipeline:
                       taps: Optional[dict] = None) -> Optional[FrameResult]:
         """Preprocess and fuse one frame; None for frames lacking a full
         outlier window (main.cc:986-992).  `taps` is passed to
-        integrate_frame_bucketed."""
+        integrate_frame_bucketed.  Traced as the span `frame`."""
+        if not tracer.on:
+            return self._process_frame(video, frame_index, taps)
+        tracer.begin("frame", frame_index)
+        try:
+            tracer.poll()
+            return self._process_frame(video, frame_index, taps)
+        finally:
+            tracer.end()
+
+    def _process_frame(self, video: RGBDVideo, frame_index: int,
+                       taps: Optional[dict]) -> Optional[FrameResult]:
         cfg = self.config
         half_window = cfg.outlier_filtering_frame_count // 2
         for idx in range(max(0, frame_index - half_window),
@@ -335,9 +389,13 @@ class ReconstructionPipeline:
             return FrameResult(frame_index=frame_index, surfel_count=-1,
                                merge_count=-1)
 
-        t0 = time.perf_counter()
+        traced = tracer.on
+        staged = cfg.log_timings and cfg.log_timings_staged
         pack, color = self._staged_inputs.get(frame_index) or \
             self._stage_inputs(video, frame_index)
+        t0 = time.perf_counter()
+        if traced:
+            tracer.begin("preprocess", frame_index, t0)
         transforms, t_gl, t_lg, _ = split_pose_pack(
             pack, cfg.outlier_filtering_frame_count)
         depth = self._depth_buffers[frame_index]
@@ -348,26 +406,39 @@ class ReconstructionPipeline:
             depth = pp.downscale_median_excluding(depth, factor)
             others = [pp.downscale_median_excluding(o, factor)
                       for o in others]
-        dump = functools.partial(self._dump_depth, frame_index) \
-            if cfg.debug_depth_preprocessing else None
+        passes = stages = on_stage = None
+        if traced or staged:
+            passes, stages = StageTimer(self.device), StageTimer(self.device)
+            passes(pp.PASSES[0])
+        if cfg.debug_depth_preprocessing or passes is not None:
+            on_stage = functools.partial(self._on_pass, frame_index, passes)
         d, nrm, rad = pp.preprocess_frame(
             depth, torch.stack(others), transforms,
-            **preprocess_kwargs(cfg, self.camera), on_stage=dump)
+            **preprocess_kwargs(cfg, self.camera), on_stage=on_stage)
         t1 = time.perf_counter()
-        stages = StageTimer(self.device) \
-            if cfg.log_timings and cfg.log_timings_staged else None
+        if traced:
+            tracer.end(t1)
         params, n_eff = self._pick_params_and_bucket(frames=1)
+        if traced:
+            tracer.begin("fusion", frame_index)
         self._state = integrate_frame_bucketed(
             self._state, d, nrm, rad, color, t_gl, t_lg, frame_index,
             params, n_eff, taps, stages)
         self._queue_count_readback(frames=1)
         t2 = time.perf_counter()
+        if traced:
+            tracer.end(t2)
+            tracer.device(passes, "dev.preprocess.", frame_index)
+            tracer.device(stages, "dev.fusion.", frame_index)
         self.timing.add_time("preprocessing", t1 - t0)
         self.timing.add_time("integration", t2 - t1)
         self._last_stage_ms = {"preprocessing": 1000.0 * (t1 - t0),
                                "integration": 1000.0 * (t2 - t1)}
-        if stages is not None:
-            self._last_stage_ms.update(stages.stage_ms())
+        if staged:
+            # Device times, read by log_frame_timings once the device has
+            # run the frame.
+            self._staged_timers = (passes, stages)
+            self._last_stage_ms.update(dict.fromkeys(COLUMNS, 0.0))
 
         self._retire_depth(frame_index - half_window)
         video.color_frames[frame_index].clear_image()
@@ -376,12 +447,24 @@ class ReconstructionPipeline:
                            surfel_count=-1,  # fetched lazily: a host sync
                            merge_count=-1)
 
+    def _on_pass(self, frame_index: int, passes: Optional[StageTimer],
+                 name: str, depth: torch.Tensor) -> None:
+        """preprocess_frame's on_stage: the pass's end in the StageTimer,
+        and with debug_depth_preprocessing its PNG."""
+        if passes is not None:
+            passes(_NEXT_PASS[name])
+        if self.config.debug_depth_preprocessing:
+            self._dump_depth(frame_index, name, depth)
+
     # -- chunked dispatch (JAX pipeline.py:214-227,376-451) -----------------
 
     def _chunk_entry(self, video: RGBDVideo, frame_index: int) -> ChunkEntry:
         """A deferred frame's inputs: its depth window's device tensors and
         its color and pose pack, taken from the prefetched ones when
         staged (consumed here), else made on the host."""
+        traced = tracer.on
+        if traced:
+            tracer.begin("input.stage", frame_index)
         depths = [self._depth_buffers[frame_index]] + [
             self._depth_buffers[frame_index + o]
             for o in self._window_offsets()]
@@ -391,7 +474,9 @@ class ReconstructionPipeline:
         else:
             pose = self._frame_pose_pack(video, frame_index)
             color = self._frame_color(video, frame_index)
-        return ChunkEntry(depths, color, pose)
+        if traced:
+            tracer.end()
+        return ChunkEntry(depths, color, pose, frame_index)
 
     def _flush(self) -> None:
         """Run every deferred frame, as power-of-2 sub-chunks (largest
@@ -402,7 +487,10 @@ class ReconstructionPipeline:
             return
         pending, self._pending = self._pending, []
         c = len(pending)
+        traced = tracer.on
         t0 = time.perf_counter()
+        if traced:
+            tracer.begin("flush", pending[-1].index, t0)
         while pending:
             size = 1 << (len(pending).bit_length() - 1)
             entries, pending = pending[:size], pending[size:]
@@ -410,6 +498,8 @@ class ReconstructionPipeline:
             self._chunk.run(self._state, entries, params, n_eff)
             self._queue_count_readback(frames=size)
         t1 = time.perf_counter()
+        if traced:
+            tracer.end(t1)
         self.timing.add_time("integration", t1 - t0)
         self._last_stage_ms = {"integration": 1000.0 * (t1 - t0) / c}
 
@@ -420,6 +510,9 @@ class ReconstructionPipeline:
         active-surfel budget the bucket above the count bound after them;
         with one the capacity, with the auto budget (-1) the budget from
         the readbacks confirmed so far.  Logged in bucket_pick_log."""
+        traced = tracer.on
+        if traced:
+            tracer.begin("dispatch.pick")
         budget = self.config.active_surfel_budget
         if budget <= 0:          # both policies read the confirmed count
             self._drain_count_readbacks(
@@ -432,6 +525,8 @@ class ReconstructionPipeline:
                 params, active_surfel_budget=self._auto_budget(frames))
         self._current_budget = params.active_surfel_budget
         self.bucket_pick_log.append((frames, n_eff))
+        if traced:
+            tracer.end()
         return params, n_eff
 
     def _queue_count_readback(self, frames: int) -> None:
@@ -451,11 +546,17 @@ class ReconstructionPipeline:
         are unconfirmed.  A readback of `frames` frames gives the growth
         sample ceil(growth / frames)."""
         pend = self._pending_counts
-        while pend and (len(pend) > max_outstanding or pend[0][1] is None
-                        or pend[0][1].query()):
-            values, event, frames = pend.pop(0)
-            if event is not None:
-                event.synchronize()
+        while pend:
+            values, event, frames = pend[0]
+            fired = event is None or event.query()
+            if not fired and len(pend) <= max_outstanding:
+                break
+            pend.pop(0)
+            if not fired:
+                if tracer.on:
+                    tracer.wait("readback", block=event.synchronize)
+                else:
+                    event.synchronize()
             new_count, active_tiles = values.tolist()
             self._growth_window.append(
                 (new_count - self._confirmed_count + frames - 1) // frames)
@@ -521,10 +622,6 @@ class ReconstructionPipeline:
         """The active-set budget of the last processed frame."""
         return self._current_budget
 
-    def _to_device(self, array: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(array, np.float32)) \
-            .to(self.device)
-
     def _window_offsets(self):
         """Frame offsets of the outlier-filtering window, in order."""
         half_window = self.config.outlier_filtering_frame_count // 2
@@ -557,10 +654,29 @@ class ReconstructionPipeline:
     def _stage_inputs(self, video: RGBDVideo, frame_index: int) -> tuple:
         """The frame's inputs besides depth, on the device: (pose pack,
         (3,H,W) u8 color)."""
-        color = torch.from_numpy(self._frame_color(video, frame_index)) \
-            .to(self.device)
-        return self._to_device(self._frame_pose_pack(video, frame_index)), \
-            color
+        traced = tracer.on
+        if traced:
+            tracer.begin("input.stage", frame_index)
+        color = self._upload(torch.from_numpy(
+            self._frame_color(video, frame_index)), frame_index)
+        pack = self._upload(torch.from_numpy(np.ascontiguousarray(
+            self._frame_pose_pack(video, frame_index), np.float32)),
+            frame_index)
+        if traced:
+            tracer.end()
+        return pack, color
+
+    def _upload(self, host: torch.Tensor, frame_index: int) -> torch.Tensor:
+        """A host tensor on the device by a blocking copy, which waits for
+        the work queued before it.  Traced, the copy is enqueued without
+        blocking and the wait that the blocking copy makes follows it as
+        the span wait.upload."""
+        if not tracer.on:
+            return host.to(self.device)
+        tracer.h2d(host)
+        out = host.to(self.device, non_blocking=True)
+        tracer.wait("upload", frame_index, stream_sync(self.device))
+        return out
 
     def _frame_color(self, video: RGBDVideo, frame_index: int) -> np.ndarray:
         """This frame's color image as plane-major (3, H, W) u8,
@@ -607,6 +723,12 @@ class ReconstructionPipeline:
         """Run the deferred frames and wait until the device has finished
         every queued frame."""
         self._flush()
+        if tracer.on:
+            tracer.wait("drain", block=self._synchronize)
+        else:
+            self._synchronize()
+
+    def _synchronize(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -634,9 +756,14 @@ class ReconstructionPipeline:
         """Run the deferred frames, consume every outstanding count
         readback and wait for the device: a dispatch barrier for
         benchmarks and teardown."""
+        traced = tracer.on
+        if traced:
+            tracer.begin("drain")
         self._flush()
         self._drain_count_readbacks(0)
         self.block_until_ready()
+        if traced:
+            tracer.end()
 
     def snapshot_dispatch_state(self) -> tuple:
         """A copy of the surfel map and of the bookkeeping that decides the
@@ -661,10 +788,13 @@ class ReconstructionPipeline:
         self._growth_window = list(growth)
         self._unconfirmed_frames = 0
 
-    def _record_transfer(self, t0: float) -> None:
-        elapsed = time.perf_counter() - t0
-        self.timing.add_time("surfel_transfer", elapsed)
-        self._last_stage_ms["surfel_transfer"] = 1000.0 * elapsed
+    def _record_transfer(self, t0: float) -> float:
+        """Time the reference's surfel_transfer stage from host time t0:
+        -> the host time at its end."""
+        t1 = time.perf_counter()
+        self.timing.add_time("surfel_transfer", t1 - t0)
+        self._last_stage_ms["surfel_transfer"] = 1000.0 * (t1 - t0)
+        return t1
 
     def snapshot(self):
         """SoA snapshot of the live rows for the meshing engine
@@ -673,13 +803,32 @@ class ReconstructionPipeline:
         (smooth (n,3), radius_sq (n,), normal (n,3), stamps (n,), n), copies
         that the next frame's in-place write leaves as they are."""
         t0 = time.perf_counter()
-        smooth, radius_sq, normal, stamps, count = meshing_snapshot(
-            self.state)
-        count = int(count)
-        out = tuple(a[:count].to("cpu", copy=True).numpy()
-                    for a in (smooth, radius_sq, normal, stamps)) + (count,)
+        out = self._snapshot_full(-1)
         self._record_transfer(t0)
         return out
+
+    def _snapshot_full(self, frame_index: int) -> tuple:
+        """snapshot()'s arrays, traced as snapshot.select (the selection's
+        launches, then wait.snapshot where the size read would wait for
+        the queued frames and the selection) and snapshot.copy (the copies
+        to the host)."""
+        state = self.state
+        traced = tracer.on
+        if traced:
+            tracer.begin("snapshot.select", frame_index)
+        smooth, radius_sq, normal, stamps, count = meshing_snapshot(state)
+        if traced:
+            tracer.wait("snapshot", frame_index, stream_sync(self.device))
+        count = int(count)
+        if traced:
+            tracer.end()
+            tracer.begin("snapshot.copy", frame_index)
+        out = tuple(a[:count].to("cpu", copy=True).numpy()
+                    for a in (smooth, radius_sq, normal, stamps))
+        if traced:
+            tracer.d2h(sum(a.nbytes for a in out))
+            tracer.end()
+        return out + (count,)
 
     def snapshot_for_meshing(self, frame_index: int):
         """Tagged snapshot for MeshingDriver.submit_snapshot: the full SoA
@@ -687,19 +836,42 @@ class ReconstructionPipeline:
         afterwards only the rows changed since the last snapshot
         (fusion.meshing_snapshot_delta; the reference re-downloads
         everything each transfer, cuda_surfel_reconstruction.cc:339-359).
-        Blocks until the device has fused every queued frame."""
+        Blocks until the device has fused every queued frame.  Traced as
+        the span `snapshot`, over the stretch timed as surfel_transfer; a
+        delta's snapshot.select waits twice: before the changed rows'
+        count is read and before the copies, for the rows' gathers."""
+        traced = tracer.on
+        t0 = time.perf_counter()
+        if traced:
+            tracer.begin("snapshot", frame_index, t0)
         if not self.config.delta_surfel_transfer or \
                 self._last_snap_frame is None:
-            out = ("full",) + self.snapshot()
+            out = ("full",) + self._snapshot_full(frame_index)
             rows = out[5]
         else:
-            t0 = time.perf_counter()
+            state = self.state
+            def wait():
+                tracer.wait("snapshot", frame_index, stream_sync(self.device))
+
+            if traced:
+                tracer.begin("snapshot.select", frame_index)
             idx, pos, rad, nrm, stamps, rows, count = meshing_snapshot_delta(
-                self.state, self._last_snap_frame,
-                self.config.regularization_frame_window_size)
-            out = ("delta",) + tuple(a.cpu().numpy() for a in (
-                idx, pos, rad, nrm, stamps)) + (int(count),)
-            self._record_transfer(t0)
+                state, self._last_snap_frame,
+                self.config.regularization_frame_window_size,
+                before_size_read=wait if traced else None)
+            if traced:
+                wait()
+                tracer.end()
+                tracer.begin("snapshot.copy", frame_index)
+            arrays = tuple(a.cpu().numpy() for a in (idx, pos, rad, nrm,
+                                                      stamps))
+            out = ("delta",) + arrays + (int(count),)
+            if traced:
+                tracer.d2h(sum(a.nbytes for a in arrays))
+                tracer.end()
+        t1 = self._record_transfer(t0)
+        if traced:
+            tracer.end(t1)
         self._last_snap_frame = frame_index
         self.snapshot_rows_shipped += rows
         self.snapshot_count += 1
@@ -724,9 +896,18 @@ class ReconstructionPipeline:
 
     def log_frame_timings(self, frame_index: int) -> None:
         """Append one reference-format per-frame timings line
-        (main.cc:1531-1545); the values are host times (module
-        docstring).  The count is read first: it runs the deferred frames,
-        whose flush sets the stage times the line reports."""
+        (main.cc:1531-1545); the values are host times, with
+        log_timings_staged device times of the preprocessing passes and
+        fusion phases (module docstring).  The count is read first: it
+        runs the deferred frames, whose flush sets the stage times the
+        line reports, and waits for the device, which has then passed the
+        staged timers' marks."""
         count = self.surfel_count()
+        if self._staged_timers is not None:
+            passes, stages = self._staged_timers
+            self._staged_timers = None
+            self._last_stage_ms.update(
+                stages.stage_ms(),
+                preprocessing=sum(passes.stage_ms().values()))
         self.timings_log_lines.append(format_frame_timings_line(
             frame_index, self._last_stage_ms, count))
