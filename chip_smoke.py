@@ -6,7 +6,8 @@ Phases, each printing one or more lines:
   1. device: requires CUDA (exits non-zero otherwise), prints the card and
      its power limit, turns TF32 off;
   2. build: compiles csrc/blend.cu, blend_wide.cu (both with the shared
-     header blend_common.cuh), gather.cu and l2_read.cu (one nvcc each)
+     header blend_common.cuh), gather.cu, l2_read.cu and preprocess.cu
+     (one nvcc each)
      and the native mesher (g++), all started together;
   3. kernel: the one-launch blending kernel bit for bit against its plain
      PyTorch version on seeded maps at 640x480 with radii 1, 2, 3, 6, 12
@@ -23,9 +24,17 @@ Phases, each printing one or more lines:
      call enqueued as the launchers count them; then the wide path at
      radius 48 for each (T ring iterations a launch, core rows) of
      WIDE_SWEEP, bit for bit and timed;
+     preprocess: each csrc/preprocess.cu kernel (bilateral, outlier,
+     erode, normals, radii) bit for bit against its plain pass on a
+     seeded 640x480 frame at the default settings, one launch of its own
+     kernel and none of the others a call, and
+     its device, host-inclusive and plain times beside its bound
+     (tools/kernel_timing.py::preprocess_times);
   4. slice: ReconstructionPipeline at 640x480 with 500k surfel capacity and
      default settings over the 24-frame synthetic video, every frame with a
-     full outlier window fused; launch counts prove the kernel ran;
+     full outlier window fused; launch counts, zeroed just before, prove
+     the kernels ran: one blending launch and one of each preprocessing
+     kernel a fused frame;
   5. kernel on the slice's own blending inputs (captured through the taps
      on the last warm-up frame, the map holding surfels by then), bit for
      bit, and its device time on them; the same for the wide path at
@@ -153,6 +162,7 @@ Phases 7-9, 13, buckets, chunk and 17-21 print their wall time.
 Then one JSON line describing the kernels (per kernel: launches on its
 path and per main-path frame, for the blending kernel also on the [batch],
 [shard], [video] app, [live-viewer], [bench], [buckets] and [chunk] paths,
+for each preprocessing kernel on the [batch], [bench] and [chunk] paths,
 max_abs_err
 against the plain version, device / host-inclusive / plain times, the
 bound with what sets it, and the one-call PyTorch yardstick or null)
@@ -185,15 +195,18 @@ from surfelmeshing_tpu_torch.app import multi_sequence as MS
 from surfelmeshing_tpu_torch.config import SurfelMeshingConfig
 from surfelmeshing_tpu_torch.eval import ab_matrix as AB
 from surfelmeshing_tpu_torch.io.checkpoint import load_checkpoint
-from surfelmeshing_tpu_torch.io.synthetic import (synthetic_rgbd_video,
+from surfelmeshing_tpu_torch.io.synthetic import (default_camera,
+                                                  synthetic_rgbd_video,
                                                   write_tum_dataset)
 from surfelmeshing_tpu_torch.io.tum import read_tum_rgbd_dataset
 from surfelmeshing_tpu_torch.meshing import MeshingDriver, engine
-from surfelmeshing_tpu_torch.ops import blend, cuda_build
+from surfelmeshing_tpu_torch.ops import blend, cuda_build, launch_counts
 from surfelmeshing_tpu_torch.ops import fusion as F
 from surfelmeshing_tpu_torch.ops import gather as G
+from surfelmeshing_tpu_torch.ops import preprocess as pp
 from surfelmeshing_tpu_torch.parallel import shard
-from surfelmeshing_tpu_torch.pipeline import ReconstructionPipeline
+from surfelmeshing_tpu_torch.pipeline import (ReconstructionPipeline,
+                                              preprocess_kwargs)
 from surfelmeshing_tpu_torch.tools import (bench_configs, bench_e2e,
                                            fidelity_anchor, gather_probe,
                                            kernel_timing)
@@ -207,7 +220,8 @@ from surfelmeshing_tpu_torch.viewer.probe import (MeshProbe, free_port,
 
 SCALE = 5000.0
 WARMUP_FRAMES = 4
-KERNEL_SOURCES = ("blend", "blend_wide", "gather", "l2_read")
+KERNEL_SOURCES = ("blend", "blend_wide", "gather", "l2_read",
+                  "preprocess")
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM3 bytes/s and
 # f32 operations/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -245,9 +259,25 @@ def blend_counts() -> tuple:
     return blend.blend_core.launches, blend.blend_core.wide_launches
 
 
-def zero_blend_counts() -> None:
-    core = blend.blend_core
-    core.launches = core.wide_launches = core.wide_kernel_launches = 0
+def zero_launch_counts() -> None:
+    """Every kernel's launch counter to 0 (ops/launch_counts.py)."""
+    launch_counts.zero()
+
+
+def preprocess_counts(label: str) -> dict:
+    """Each preprocessing kernel's launches since the counters were zeroed,
+    checked to equal the blending calls counted over the same run: a fused
+    frame launches one of each."""
+    counts = pp.launches()
+    calls = blend.blend_core.launches + blend.blend_core.wide_launches
+    check(counts == dict.fromkeys(pp.KERNELS, calls), f"{label}: "
+          f"preprocessing launches {counts} for {calls} blending calls")
+    return counts
+
+
+def add_counts(total: dict, counts: dict) -> dict:
+    """`total` plus `counts`, key by key."""
+    return {k: total.get(k, 0) + n for k, n in counts.items()}
 
 
 def compare_kernel(maps, radius, label) -> float:
@@ -322,7 +352,7 @@ def time_blend(maps, radius, device, repeats, label) -> dict:
     """Device, host-inclusive and plain times of blend_core at `radius` on
     `maps`, beside the bound, and the kernels each call enqueued, counted
     over the timed calls; prints them."""
-    zero_blend_counts()
+    zero_launch_counts()
     times = dict(
         device_ms=kernel_timing.device_ms(
             lambda: blend.blend_core(*maps, radius, SCALE), repeats),
@@ -383,6 +413,40 @@ def phase_kernel(device):
     wide["sweep"], sweep_err = wide_sweep(maps, 48)
     return (dict(times, max_abs_err=err, radius32_device_ms=worst["device_ms"]),
             dict(wide, max_abs_err=max(wide_err, sweep_err)))
+
+
+def phase_preprocess(device) -> list:
+    """-> the kernels-line numbers of the five preprocessing kernels."""
+    cfg = slice_config()
+    kw = preprocess_kwargs(cfg, default_camera(640, 480))
+    frame = [t.to(device) for t in kernel_timing.preprocess_inputs(
+        7, 480, 640, cfg.outlier_filtering_frame_count)]
+    for name, fn, args in kernel_timing.preprocess_pass_args(*frame, kw):
+        got = getattr(pp, fn)(*args)
+        want = getattr(pp, fn + "_reference")(*args)
+        got, want = (x if isinstance(x, tuple) else (x,)
+                     for x in (got, want))
+        check(all(bits_equal(g, w) for g, w in zip(got, want)),
+              f"preprocess {name} kernel differs from its plain pass")
+    rows = kernel_timing.preprocess_times(*frame, kw)
+    for r in rows:
+        one = dict(dict.fromkeys(pp.KERNELS, 0), **{r["name"]: 1})
+        check(r["call_launches"] == one, f"preprocess {r['name']}: "
+              f"launches {r['call_launches']} in a call")
+        print(f"[kernel] preprocess {r['name']} 640x480, seeded frame, "
+              f"bit-identical to its plain pass, 1 launch a call; device "
+              f"{r['device_ms']:.4f} ms (CUDA graph of "
+              f"{kernel_timing.REPEATS} calls), host-inclusive "
+              f"{r['host_ms']:.4f} ms; plain PyTorch device "
+              f"{r['plain_ms']:.4f} ms, host-inclusive "
+              f"{r['plain_host_ms']:.4f} ms; bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']}: {r['bytes']} B, {r['f64_ops']} f64 "
+              f"operations), {100.0 * r['bound_ms'] / r['device_ms']:.1f}% "
+              f"of it reached")
+    total = sum(r["device_ms"] for r in rows)
+    print(f"[kernel] preprocess: five kernels {total:.4f} ms device, plain "
+          f"passes {sum(r['plain_ms'] for r in rows):.4f} ms")
+    return [dict(r, max_abs_err=0.0, library_ms=None) for r in rows]
 
 
 WIDE_SWEEP = ((8, 32), (8, 40), (12, 32), (12, 40), (16, 32), (16, 40),
@@ -462,7 +526,7 @@ def run_slice(device, video, cfg, modes=None, taps=None) -> dict:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     frame_events = []
-    zero_blend_counts()
+    zero_launch_counts()
     fused = 0
     for i in range(video.frame_count):
         if i == fused_frames[WARMUP_FRAMES]:
@@ -490,6 +554,7 @@ def run_slice(device, video, cfg, modes=None, taps=None) -> dict:
         check(blend.blend_core.wide_launches == 0, "a radius <= "
               f"{blend.MAX_RADIUS} took the wide blending path")
     return dict(pipe=pipe, fused=fused, launches=blend.blend_core.launches,
+                preprocess=preprocess_counts("run_slice"),
                 wide_launches=blend.blend_core.wide_launches,
                 wide_kernels=blend.blend_core.wide_kernel_launches,
                 timed=timed, ms_frame=start.elapsed_time(end) / timed,
@@ -508,7 +573,8 @@ def phase_slice(device, video, seq) -> dict:
     alive = pack[pack[:, F.RAD] >= 0]
     dist = seq.surface_distance(alive[:, F.SX:F.SZ + 1])
     print(f"[slice] 640x480, 500k capacity: {fused} frames fused, "
-          f"{launches} blend launches, surfel count {count}, overflow "
+          f"{launches} blend launches, preprocessing launches "
+          f"{run['preprocess']}, surfel count {count}, overflow "
           f"{int(pipe.state.overflow_count)}, {run['ms_frame']:.3f} ms/frame "
           f"(CUDA events over {run['timed']} frames after {WARMUP_FRAMES} "
           f"warm-up; host wall {run['wall_ms']:.3f} ms/frame), median "
@@ -521,7 +587,7 @@ def phase_slice(device, video, seq) -> dict:
           f"fused frames")
     check(float(np.median(dist)) < 0.005, "surfels off the scene surface")
     return dict(launches=launches, fused=fused, taps=taps,
-                ms_frame=run["ms_frame"],
+                preprocess=run["preprocess"], ms_frame=run["ms_frame"],
                 radius=pipe.fusion_params.measurement_blending_radius,
                 state=live_state(pipe.state))
 
@@ -590,7 +656,7 @@ def phase_gpu_vs_cpu(device):
           f"CPU {len(cpu)}; bit-identical {exact}; within rtol 3e-5 "
           f"atol 3e-6 {close}; mean nearest-surfel distance {dist:.3e} m")
     check(close or (count_ok and dist < 5e-4), "GPU and CPU slices disagree")
-    zero_blend_counts()
+    zero_launch_counts()
     gpu_state, cpu_state = gpu_and_cpu_runs(device,
                                             measurement_blending_radius=48)
     one, wide = blend_counts()
@@ -807,6 +873,7 @@ def phase_build():
     blend.load_wide_library()
     G.load_library()
     kernel_timing.load_l2_read_library()
+    pp.load_library()
     engine.MeshingEngine()
     built = ", ".join(f"csrc/{name}.cu -> {path.name}"
                       for name, path in zip(KERNEL_SOURCES, paths))
@@ -998,7 +1065,7 @@ def run_e2e(device, cfg, label: str) -> dict:
         budgets.append(pipe.active_budget())
         return 1
 
-    blend.blend_core.launches = 0
+    zero_launch_counts()
     fused = 0
     for i in range(lo, lo + warmup):
         fused += fuse(i)
@@ -1021,6 +1088,7 @@ def run_e2e(device, cfg, label: str) -> dict:
     pipe.block_until_ready()
     wall = time.perf_counter() - t0
     launches = blend.blend_core.launches
+    preprocess = preprocess_counts(label)
     timed_captures = pipe.graph_captures - captures_before
     mesher.drain()
     tris = int(mesher.engine.triangle_count)
@@ -1054,6 +1122,7 @@ def run_e2e(device, cfg, label: str) -> dict:
     check(rows < max(snaps, 1) * surfels,
           f"{label}: delta snapshots shipped as many rows as full ones")
     return dict(summary=summary, split=split, launches=launches, fused=fused,
+                preprocess=preprocess,
                 budgets=budgets, picks=[n for _, n in pipe.bucket_pick_log],
                 chunks=[f for f, _ in pipe.bucket_pick_log],
                 graph_captures=pipe.graph_captures,
@@ -1088,7 +1157,7 @@ def run_20m(device, full: bool) -> dict:
     video, _ = synthetic_rgbd_video(E2E_FRAMES, 640, 480, noise_sigma=0.002)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    zero_blend_counts()
+    zero_launch_counts()
     pipe = ReconstructionPipeline(cfg, video.depth_camera, device)
     lo = cfg.outlier_filtering_frame_count // 2
     pipe.process_frame(video, lo)                 # warm-up
@@ -1169,6 +1238,9 @@ def run_bench(smoke: bool) -> tuple:
     timed = int(re.search(r"(\d+) timed frames", run.stderr).group(1))
     launches = int(re.search(r"blend launches in the timed region (\d+)",
                              run.stderr).group(1))
+    preprocess = json.loads(re.search(
+        r"preprocessing launches in the timed region (\{[^}]*\})",
+        run.stderr).group(1))
     built = int(re.search(r"builds in the timed region (\d+)",
                           run.stderr).group(1))
     metric = lines[-1]
@@ -1180,16 +1252,19 @@ def run_bench(smoke: bool) -> tuple:
           f"{label}: metric line {metric}")
     check(launches == timed, f"{label}: {launches} blend launches for "
           f"{timed} timed frames")
+    check(preprocess == dict.fromkeys(pp.KERNELS, timed), f"{label}: "
+          f"preprocessing launches {preprocess} for {timed} timed frames")
     check(built == 0, f"{label}: {built} builds in the timed region")
-    return lines, launches
+    return lines, launches, preprocess
 
 
 def bench_tool(main, argv) -> list:
     """One of the port's bench tools in-process through main(argv), its
-    JSON lines printed with the phase's prefix; blending-kernel counts set
-    to 0 just before and checked just after: one launch a fused frame."""
+    JSON lines printed with the phase's prefix; launch counts set to 0
+    just before and checked just after: one blending launch and one of
+    each preprocessing kernel a fused frame."""
     out = io.StringIO()
-    zero_blend_counts()
+    zero_launch_counts()
     with contextlib.redirect_stdout(out):
         results = main(["--device", "cuda", *argv])
     launches = blend.blend_core.launches
@@ -1199,6 +1274,11 @@ def bench_tool(main, argv) -> list:
     fused = sum(r["fused_frames"] for r in results)
     check(launches == fused == sum(r["blend_launches"] for r in results),
           f"{name}: {launches} blend launches for {fused} fused frames")
+    preprocess, reported = preprocess_counts(name), {}
+    for r in results:
+        reported = add_counts(reported, r["preprocess_launches"])
+    check(preprocess == reported, f"{name}: preprocessing launches "
+          f"{preprocess}, {reported} in its results")
     return results
 
 
@@ -1206,11 +1286,12 @@ def phase_bench(device) -> dict:
     """The port's bench entry points: bench.py (a process of its own, then
     its smoke mode with the CPU audit), bench_e2e (500k, 20m:-1) and
     bench_configs (500k, 2m:2m, 20m:2m on the arc trajectory)
-    in-process."""
+    in-process.  -> the blending launches and each preprocessing kernel's
+    launches of each."""
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
-    _, bench_launches = run_bench(smoke=False)
-    smoke, smoke_launches = run_bench(smoke=True)
+    _, bench_launches, bench_pp = run_bench(smoke=False)
+    smoke, smoke_launches, smoke_pp = run_bench(smoke=True)
     audit = smoke[0]["smoke_check"]
     check(audit["count_equal"] and audit["pack_equal"],
           f"bench smoke: the card's state differs from the CPU replay "
@@ -1227,9 +1308,17 @@ def phase_bench(device) -> dict:
     launches = dict(bench=bench_launches, bench_smoke=smoke_launches,
                     bench_e2e=sum(r["blend_launches"] for r in e2e),
                     bench_configs=sum(r["blend_launches"] for r in sweep))
+    preprocess = dict(bench=bench_pp, bench_smoke=smoke_pp)
+    for tool, results in (("bench_e2e", e2e), ("bench_configs", sweep)):
+        preprocess[tool] = {}
+        for r in results:
+            preprocess[tool] = add_counts(preprocess[tool],
+                                          r["preprocess_launches"])
     print(f"[bench] blending-kernel launches, one a fused frame: "
-          f"{launches}; phase wall {time.perf_counter() - t0:.1f} s")
-    return launches
+          f"{launches}; preprocessing-kernel launches, one of each a fused "
+          f"frame: {preprocess}; phase wall "
+          f"{time.perf_counter() - t0:.1f} s")
+    return dict(launches=launches, preprocess=preprocess)
 
 
 class _LogLines(logging.Handler):
@@ -1336,10 +1425,10 @@ def bench_rounds(device, variants: dict, n_frames: int,
     allocates nothing, so it leaves out the graphs' pool) and each
     setup's (warm-up, captures, untimed round; "resident": what earlier
     setups left).  The `alone` config is set up first and timed once more
-    before the others exist.  Blending launches are counted per config
-    over all its runs.  -> {name: dict(pipe, ms, wall, peak, setup_peak,
-    busy, state, picks, launches, fused, frames, timed_captures,
-    alone)}."""
+    before the others exist.  Blending and preprocessing launches are
+    counted per config over all its runs.  -> {name: dict(pipe, ms, wall,
+    peak, setup_peak, busy, state, picks, launches, preprocess, fused,
+    frames, timed_captures, alone)}."""
     video, cfg, lo, hi, timed = bench.setup(smoke=False)
     cfgs = {name: make(cfg) for name, make in variants.items()}
     frames = timed[:n_frames]
@@ -1358,9 +1447,11 @@ def bench_rounds(device, variants: dict, n_frames: int,
         pipe.drain()
 
     def counted(name, run):
-        zero_blend_counts()
+        zero_launch_counts()
         run()
         runs[name]["launches"] += blend.blend_core.launches
+        runs[name]["preprocess"] = add_counts(
+            runs[name]["preprocess"], preprocess_counts(f"[{name}]"))
         runs[name]["fused"] += len(frames)
 
     def timed_round(name):
@@ -1386,7 +1477,7 @@ def bench_rounds(device, variants: dict, n_frames: int,
             pipe.process_frame(video, i)
         runs[name] = dict(pipe=pipe, snap=pipe.snapshot_dispatch_state(),
                           ms=[], wall=[], peak=[], launches=0, fused=0,
-                          frames=len(frames))
+                          preprocess={}, frames=len(frames))
         prepare(name)
         counted(name, lambda: replay(name))
         runs[name]["setup_peak"] = \
@@ -1455,7 +1546,7 @@ def phase_buckets(device, e2e, full, app) -> int:
           f"[buckets] [e2e]'s picks {e2e['picks']} reach the capacity")
     launches += e2e_f["launches"]
 
-    zero_blend_counts()
+    zero_launch_counts()
     run_f = run_app(device, ["--max_surfel_count", "500000",
                              "--shape_bucket_step", "500000",
                              "--use_shape_buckets"], checkpoint=False)
@@ -1504,7 +1595,7 @@ def phase_buckets(device, e2e, full, app) -> int:
 CHUNK_FRAMES = 24     # bench.py's timed frames
 
 
-def phase_chunk(device, video, e2e, app) -> int:
+def phase_chunk(device, video, e2e, app) -> dict:
     """Chunked dispatch (--frame_chunk K, one CUDA-graph replay a
     sub-chunk) against per-frame dispatch: bench.py's frames at K = 4 and
     1 in turns (states bit-identical, ms/frame, busy, idle share, peak
@@ -1512,8 +1603,9 @@ def phase_chunk(device, video, e2e, app) -> int:
     equal to [e2e]'s, which [e2e-20m] equals); the app with --frame_chunk
     3 (PLY equal to [app]'s); symmetric_regularization=False chunked on
     the slice video (eager on the card: no graph), bit-identical to
-    per-frame.  One blending launch a fused frame, replays included.
-    -> the blending launches of the chunked runs."""
+    per-frame.  One blending launch and one of each preprocessing kernel
+    a fused frame, replays included.  -> the blending launches and each
+    preprocessing kernel's launches of the chunked runs."""
     t0 = time.perf_counter()
     runs = bench_rounds(device, {
         "K4": lambda cfg: cfg,
@@ -1553,7 +1645,7 @@ def phase_chunk(device, video, e2e, app) -> int:
     check(equal, "[chunk] K=4 state differs from K=1's")
     check(pipe.graph_captures > 0 and pipe.graph_replays > 0,
           "[chunk] no CUDA graph captured or replayed")
-    launches = k4["launches"]
+    launches, preprocess = k4["launches"], k4["preprocess"]
 
     capacity = SurfelMeshingConfig().max_surfel_count
     run = run_e2e(device, dataclasses.replace(e2e_config(capacity, -1),
@@ -1574,6 +1666,7 @@ def phase_chunk(device, video, e2e, app) -> int:
     check(run["launches"] == run["fused"], f"[chunk] e2e 20m:-1: "
           f"{run['launches']} blend launches for {run['fused']} frames")
     launches += run["launches"]
+    preprocess = add_counts(preprocess, run["preprocess"])
 
     sizes = []
     chunk_run = chunk_module.ChunkStep.run
@@ -1583,13 +1676,14 @@ def phase_chunk(device, video, e2e, app) -> int:
         return chunk_run(self, state, entries, params, n_eff)
 
     chunk_module.ChunkStep.run = counted_run
-    zero_blend_counts()
+    zero_launch_counts()
     try:
         app3 = run_app(device, ["--max_surfel_count", "500000",
                                 "--frame_chunk", "3"], checkpoint=False)
     finally:
         chunk_module.ChunkStep.run = chunk_run
     app_launches, _ = blend_counts()
+    preprocess = add_counts(preprocess, preprocess_counts("[chunk] app"))
     print(f"[chunk] app --frame_chunk 3 on tum_micro: rc {app3['rc']} in "
           f"{app3['seconds']:.2f} s ([app] {app['seconds']:.2f} s); "
           f"sub-chunks {sizes}; PLY byte-identical to [app]'s: "
@@ -1606,12 +1700,14 @@ def phase_chunk(device, video, e2e, app) -> int:
         pipe = ReconstructionPipeline(slice_config(frame_chunk=chunk),
                                       video.depth_camera, device)
         pipe.fusion_params = dataclasses.replace(pipe.fusion_params, **modes)
-        zero_blend_counts()
+        zero_launch_counts()
         for i in range(video.frame_count):
             pipe.process_frame(video, i)
         pipe.drain()
         exact[chunk] = dict(state=live_state(pipe.state),
                             launches=blend.blend_core.launches,
+                            preprocess=preprocess_counts(
+                                f"[chunk] exact K={chunk}"),
                             graphs=pipe.graph_captures,
                             graph=chunk > 1 and
                             pipe._chunk.graphs_for(pipe.fusion_params),
@@ -1630,8 +1726,11 @@ def phase_chunk(device, video, e2e, app) -> int:
     check(exact[4]["launches"] == fused, f"[chunk] exact regularization: "
           f"{exact[4]['launches']} blend launches for {fused} frames")
     launches += exact[4]["launches"]
-    print(f"[chunk] phase wall {time.perf_counter() - t0:.1f} s")
-    return launches
+    preprocess = add_counts(preprocess, exact[4]["preprocess"])
+    print(f"[chunk] {launches} blend launches and preprocessing launches "
+          f"{preprocess} over the chunked runs; phase wall "
+          f"{time.perf_counter() - t0:.1f} s")
+    return dict(launches=launches, preprocess=preprocess)
 
 
 VIDEO_W, VIDEO_H = 1280, 720
@@ -1872,7 +1971,7 @@ def phase_video(device, e2e, app) -> dict:
           + "; ".join(f"{name} {fmt_busy(busy[name], elapsed[name])}"
                       for name in renders))
 
-    zero_blend_counts()
+    zero_launch_counts()
     run = run_app(device, ["--max_surfel_count", "500000", "--create_video"],
                   checkpoint=False)
     launches, wide = blend_counts()
@@ -1897,7 +1996,7 @@ def phase_live_viewer(device) -> dict:
     /mesh and /version; -> the run's blending launches."""
     t0 = time.perf_counter()
     port = free_port()
-    zero_blend_counts()
+    zero_launch_counts()
     with MeshProbe(port) as probe:
         run = run_app(device, ["--max_surfel_count", "500000",
                                "--live_viewer", str(port)], checkpoint=False)
@@ -1932,7 +2031,7 @@ def phase_batch(device) -> dict:
     """Eight 640x480 sequences at 500k capacity each, default settings, in
     lockstep over 12 fused frames (app/multi_sequence.py's LockstepBatch
     on in-memory videos): CUDA events over the lockstep frames after the
-    first, the blending launches of the run, sequences 0 and 7 against
+    first, the blending and preprocessing launches of the run, sequences 0 and 7 against
     single-sequence ReconstructionPipeline runs of their videos, bit for
     bit."""
     t0 = time.perf_counter()
@@ -1948,7 +2047,7 @@ def phase_batch(device) -> dict:
     lock = MS.LockstepBatch(videos, cfg, device)
     frames = list(lock.frame_range())
     check(len(frames) == BATCH_FUSED, f"[batch] {len(frames)} lockstep frames")
-    zero_blend_counts()
+    zero_launch_counts()
     lock.run(frames[:1])
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -1960,6 +2059,7 @@ def phase_batch(device) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
     launches, wide = blend_counts()
+    preprocess = preprocess_counts("[batch]")
     timed = len(frames) - 1
     states = [live_state(st) for st in lock.states]
     counts = [int(st["surfel_count"]) for st in states]
@@ -1971,8 +2071,8 @@ def phase_batch(device) -> dict:
           f"sequence-frames/s (host wall), {peak_mib()} MiB peak device "
           f"memory allocated ({live_before:.1f} MiB of it held by earlier "
           f"phases); surfels {counts}, total {int(total)}; "
-          f"{launches} blend launches; rendering {render_s:.1f} s on the "
-          f"host")
+          f"{launches} blend launches, preprocessing launches {preprocess}; "
+          f"rendering {render_s:.1f} s on the host")
     check(int(total) == sum(counts), "[batch] total is not the sum of the "
           "sequences' counts")
     check(all(c > 0 for c in counts), "[batch] a sequence has no surfels")
@@ -1989,7 +2089,7 @@ def phase_batch(device) -> dict:
               f"bit-identical to a single-sequence ReconstructionPipeline "
               f"run ({counts[s]} surfels; {run['ms_frame']:.3f} ms/frame "
               f"alone, CUDA events)")
-    return dict(launches=launches, fused=len(frames))
+    return dict(launches=launches, preprocess=preprocess, fused=len(frames))
 
 
 def phase_multi_seq(device) -> None:
@@ -2110,6 +2210,7 @@ def main() -> int:
 def run_phases(device, anchor) -> list:
     """Phases 3-20 and the end of 21; -> the kernels line's entries."""
     blend_times, wide_times = phase_kernel(device)
+    preprocess_rows = phase_preprocess(device)
     video, seq = synthetic_rgbd_video(SLICE_FRAMES, 640, 480,
                                       noise_sigma=0.002)
     slice_run = phase_slice(device, video, seq)
@@ -2125,11 +2226,11 @@ def run_phases(device, anchor) -> list:
     gathers = phase_gather(device)
     e2e = phase_e2e(device)
     full_20m = phase_e2e_20m(device, e2e)
-    bench_launches = phase_bench(device)
+    bench_run = phase_bench(device)
     app = phase_app(device)
     phase_app_20m(device, app["ply"])
     buckets_launches = phase_buckets(device, e2e, full_20m, app)
-    chunk_launches = phase_chunk(device, video, e2e, app)
+    chunk_run = phase_chunk(device, video, e2e, app)
     video_run = phase_video(device, e2e, app)
     live_run = phase_live_viewer(device)
     batch_run = phase_batch(device)
@@ -2149,9 +2250,9 @@ def run_phases(device, anchor) -> list:
                                  video_path_launches=video_run["launches"],
                                  live_viewer_path_launches=live_run[
                                      "launches"],
-                                 bench_path_launches=bench_launches,
+                                 bench_path_launches=bench_run["launches"],
                                  buckets_path_launches=buckets_launches,
-                                 chunk_path_launches=chunk_launches)),
+                                 chunk_path_launches=chunk_run["launches"])),
                kernel_entry("blend_wide", "blend_wide.cu",
                             "surfelmeshing_tpu/ops/fusion.py:1726",
                             wide_slice["kernels"], 0,
@@ -2162,6 +2263,16 @@ def run_phases(device, anchor) -> list:
                                  wrapper_calls=wide_run["calls"]))]
     kernels += [kernel_entry(k, "gather.cu", replaces[k], g["launches"], 0,
                              g) for k, g in gathers.items()]
+    for r in preprocess_rows:
+        k = r["name"]
+        kernels.append(kernel_entry(
+            f"preprocess_{k}", "preprocess.cu", None,
+            slice_run["preprocess"][k],
+            slice_run["preprocess"][k] / slice_run["fused"],
+            dict(r, batch_path_launches=batch_run["preprocess"][k],
+                 bench_path_launches={tool: counts[k] for tool, counts in
+                                      bench_run["preprocess"].items()},
+                 chunk_path_launches=chunk_run["preprocess"][k])))
     return kernels
 
 

@@ -29,8 +29,9 @@ Prints ONE JSON line on stdout: {"metric", "value", "unit",
 real-time target of 30 FPS (main.cc:304-307), graph_captures the
 captures in the reported timed region.  stderr carries the diagnostics:
 timed frames, ms/frame on the host clock and by CUDA events, surfels,
-overflow, peak device memory, launches of the blending kernel in the
-timed region (on the card one a frame, else the bench fails), builds and
+overflow, peak device memory, launches of the blending kernel and of
+each preprocessing kernel in the timed region (on the card one a frame
+each, else the bench fails), builds and
 graph captures there, the graphs captured in all, their replays and
 capture seconds, and the timed chunks' bucket picks.
 
@@ -64,6 +65,7 @@ from . import resolve_device
 from .config import SurfelMeshingConfig
 from .io.synthetic import synthetic_rgbd_video
 from .ops import blend, cuda_build
+from .ops import preprocess as pp
 from .pipeline import ReconstructionPipeline
 from .tools.bench_configs_common import peak_mib
 
@@ -173,10 +175,13 @@ def main(argv=None) -> int:
         builds_before = cuda_build.builds
         captures_before = pipe.graph_captures
         launches_before = blend.blend_core.launches
+        preprocess_before = pp.launches()
         picks_before = len(pipe.bucket_pick_log)
         elapsed, event_ms = _timed_loop(pipe, video, timed, trace_dir)
         trace_dir = None   # trace only the first attempt
         launches = blend.blend_core.launches - launches_before
+        preprocess = {k: n - preprocess_before[k]
+                      for k, n in pp.launches().items()}
         built = cuda_build.builds - builds_before
         captured = pipe.graph_captures - captures_before
         if built == 0 and captured == 0:
@@ -202,8 +207,9 @@ def main(argv=None) -> int:
           f"{events}, surfels={count}, overflow={overflow}", file=sys.stderr)
     print(f"bench: peak device memory "
           f"{'not measured (CPU)' if peak is None else f'{peak} MiB'}; "
-          f"blend launches in the timed region {launches}; builds in the "
-          f"timed region {built}; graph captures in the timed region "
+          f"blend launches in the timed region {launches}; preprocessing "
+          f"launches in the timed region {json.dumps(preprocess)}; builds "
+          f"in the timed region {built}; graph captures in the timed region "
           f"{captured}", file=sys.stderr)
     print(f"bench: graphs captured {pipe.graph_captures} "
           f"{pipe.graph_keys} in {pipe.graph_capture_s:.3f} s, replays "
@@ -213,6 +219,10 @@ def main(argv=None) -> int:
     if device.type == "cuda" and launches != len(timed):
         raise RuntimeError(f"bench: {launches} blending-kernel launches for "
                            f"{len(timed)} timed frames")
+    if device.type == "cuda" and \
+            preprocess != dict.fromkeys(pp.KERNELS, len(timed)):
+        raise RuntimeError(f"bench: preprocessing-kernel launches "
+                           f"{preprocess} for {len(timed)} timed frames")
 
     if smoke and os.environ.get("SM_BENCH_CHECK") == "1":
         _smoke_check(cfg, video, lo, timed[-1], pipe)

@@ -28,11 +28,12 @@ sub-chunk of that mode runs its frames eagerly on the card, one after
 another (same deferral and picks; `graphs_for` says which; logged once,
 at the first such sub-chunk on the card).
 
-Blending launches: a capture runs the wrappers on the host without
-launching anything.  Each graph keeps the counts its capture added
-(blend.launch_counts), the counts are restored to their value before
-the warm-up, and each replay adds the graph's counts: blend_core.launches
-counts the kernels the card ran, one a fused frame.
+Kernel launches: a capture runs the wrappers on the host without
+launching anything.  Each graph keeps the counts its capture added to
+ops/launch_counts.py's counters, the counters are restored to their value
+before the warm-up, and each replay adds the graph's counts: the counters
+count the kernels the card ran, as eager dispatch would (a fused frame:
+one blending launch, one of each preprocessing kernel).
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ import time
 import numpy as np
 import torch
 
-from .ops import blend
+from .ops import launch_counts
 from .ops import preprocess as pp
 from .ops.fusion import (FusionParams, StageTimer, SurfelState,
                          integrate_frame_bucketed)
@@ -189,8 +190,7 @@ class ChunkStep:
             timer(None)
             tracer.end()
             tracer.device(timer, "dev.", last)
-        blend.set_launch_counts(tuple(
-            a + b for a, b in zip(blend.launch_counts(), counts)))
+        launch_counts.add(counts)
         self.replays += 1
 
     # -- inputs ---------------------------------------------------------
@@ -257,9 +257,9 @@ class ChunkStep:
     def _capture(self, state: SurfelState, size: int, params: FusionParams,
                  n_eff: int) -> tuple:
         """Warm the body up on a scratch copy of the map, then capture it
-        on the map; -> (graph, the blending counts one replay adds)."""
+        on the map; -> (graph, the launch counts one replay adds)."""
         t0 = time.perf_counter()
-        counts = blend.launch_counts()
+        counts = launch_counts.snapshot()
         current = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(current)
@@ -271,13 +271,12 @@ class ChunkStep:
         graph = torch.cuda.CUDAGraph()
         if tracer.on:             # torch.cuda.graph synchronises first
             tracer.wait("capture", block=stream_sync(self.device))
-        before = blend.launch_counts()
+        before = launch_counts.snapshot()
         with torch.cuda.graph(graph, pool=self._pool,
                               capture_error_mode="thread_local"):
             self._body(state, size, params, n_eff)
-        captured = tuple(a - b for a, b in zip(blend.launch_counts(),
-                                               before))
-        blend.set_launch_counts(counts)
+        captured = launch_counts.since(before)
+        launch_counts.restore(counts)
         self.captures += 1
         self.capture_s += time.perf_counter() - t0
         self.keys.append((size, n_eff, params.active_surfel_budget))

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import cuda_build
+from . import cuda_build, launch_counts
 
 # Largest ring radius the one-launch kernel takes (csrc/blend.cu
 # kMaxRadius); larger radii take the wide path.  A
@@ -276,22 +276,7 @@ def blend_wide(depth_f: torch.Tensor, supported: torch.Tensor,
     return out
 
 
-blend_core.launches = 0
-blend_core.wide_launches = 0
-blend_core.wide_kernel_launches = 0
-
-
-def launch_counts() -> tuple:
-    """(blend_core.launches, .wide_launches, .wide_kernel_launches)."""
-    return (blend_core.launches, blend_core.wide_launches,
-            blend_core.wide_kernel_launches)
-
-
-def set_launch_counts(counts) -> None:
-    """Set the three counts of `launch_counts`.  A CUDA graph's capture
-    runs the wrappers on the host without launching anything: the caller
-    takes the counts the capture added as the graph's own, restores the
-    counts from before it, and adds the graph's counts at each replay
-    (chunk.py)."""
-    (blend_core.launches, blend_core.wide_launches,
-     blend_core.wide_kernel_launches) = counts
+launch_counts.register("blend_core", blend_core)
+launch_counts.register("blend_wide", blend_core, "wide_launches")
+launch_counts.register("blend_wide_kernels", blend_core,
+                       "wide_kernel_launches")

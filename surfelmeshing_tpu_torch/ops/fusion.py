@@ -939,6 +939,7 @@ def _integrate_body(state, depth, normals_xy, radius_img, color,
                    pack0[:, NY] * other[:, NY] +
                    pack0[:, NZ] * other[:, NZ] >=
                    MERGE_COS_NORMAL_THRESHOLD)
+    del other, other_radius     # (N, 17): free it before the later phases
 
     pack = pack0.clone()
     pack_i = pack.view(torch.int32)
@@ -1401,15 +1402,20 @@ def _regularize(params, pack, neighbors, nbr_dist, frame_index,
     stamps = pack.view(torch.int32)[:, STAMP]
 
     slot_valid = neighbors != INVALID_INDEX                  # (4, N)
-    rows = [gsrc[_safe_idx(neighbors[k], n).long()] for k in range(4)]
-    dx = torch.stack([r[:, SX] for r in rows]) - sx[None, :]
-    dy = torch.stack([r[:, SY] for r in rows]) - sy[None, :]
-    dz = torch.stack([r[:, SZ] for r in rows]) - sz[None, :]
-    slot_stamps = torch.stack([r[:, STAMP].view(torch.int32) for r in rows])
-    snx = torch.stack([r[:, NX] for r in rows])
-    sny = torch.stack([r[:, NY] for r in rows])
-    snz = torch.stack([r[:, NZ] for r in rows])
-    cnt_i = torch.stack([r[:, RCNT] for r in rows])
+    # The neighbours' columns this pass reads, each gathered as (4, N):
+    # whole neighbour rows would be the step's largest temporary.
+    slot_idx = _safe_idx(neighbors, n).long()
+
+    def slot_col(col, dtype=torch.float32):
+        return gsrc.view(dtype)[:, col][slot_idx]
+
+    dx = slot_col(SX) - sx[None, :]
+    dy = slot_col(SY) - sy[None, :]
+    dz = slot_col(SZ) - sz[None, :]
+    slot_stamps = slot_col(STAMP, torch.int32)
+    snx, sny, snz = slot_col(NX), slot_col(NY), slot_col(NZ)
+    cnt_i = slot_col(RCNT)
+    del slot_idx
     use = slot_valid & (slot_stamps >= frame_index - window)
 
     def slot_sum(x):

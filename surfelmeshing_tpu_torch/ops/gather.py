@@ -17,8 +17,8 @@ through an int32 view.
 On CPU tensors the wrappers run the plain versions (`*_reference`); on
 CUDA tensors they launch csrc/gather.cu on the current stream (no
 synchronisation) or raise.  Each wrapper counts its launches in
-`<wrapper>.launches`.  The library is built at first use
-(ops/cuda_build.py).
+`<wrapper>.launches` (registered in ops/launch_counts.py).  The library
+is built at first use (ops/cuda_build.py).
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ from typing import Sequence, Tuple
 
 import torch
 
-from . import cuda_build
+from . import cuda_build, launch_counts
 
 COLS = 8      # f32 columns per row: 32 bytes, two 16-byte vectors
 
@@ -179,6 +179,6 @@ def gather_lane(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out_t.t()
 
 
-gather_rows.launches = 0
-gather_rows3.launches = 0
-gather_lane.launches = 0
+launch_counts.register("gather_rows", gather_rows)
+launch_counts.register("gather_rows3", gather_rows3)
+launch_counts.register("gather_lane", gather_lane)

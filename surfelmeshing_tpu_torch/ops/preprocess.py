@@ -10,6 +10,29 @@ Depth maps hold u16 values (0 = invalid) but are kept as int32 tensors:
 torch.uint16 supports few operations, so callers convert at the boundary.
 Every function accepts any integer depth dtype and returns int32.
 
+Two routes for the five passes of preprocess_frame, picked by the
+inputs' device alone (no flag, no fallback):
+- CPU tensors run the plain versions, `<pass>_reference`: the tests'
+  yardstick, held to the JAX package bit for bit.
+- CUDA tensors launch csrc/preprocess.cu, one kernel a pass (erode_depth
+  at radius 0 is copy_without_border), on the current stream, with outputs
+  from torch.empty and no host synchronisation, so a CUDA graph capture
+  records them; anything else raises.  Each pass counts its kernel's
+  launches in `<pass>.launches` (registered in ops/launch_counts.py as
+  preprocess_<kernel>); `launches()` reads them by kernel, one each a
+  preprocess_frame (pipeline.py reports their sum as
+  preprocess_launches).
+The kernels equal the plain versions as CUDA PyTorch runs them, bit for
+bit: every f32 operation rounded on its own (__f*_rn, never contracted
+into an FMA; no fast math), sqrt_f32 as the f64 square root rounded to
+f32, _fma_f32 as an f64 product plus an f64 sum rounded once to f32 (not
+fmaf), exp_f32's clamp, floor, polynomial, exponent bits and flush below
+2^-126, IEEE divisions where the plain code divides tensor by tensor and
+a reciprocal times the scalar where it divides a scalar by a tensor
+(Tensor.__rtruediv__), Python floats rounded to f32 as torch rounds
+scalars, to_i32_trunc's saturating cast, and the plain code's order of
+sums (bilateral taps row-major, outlier frames in order).
+
 Numerical parity notes (same as the JAX package):
 - the bilateral filter reproduces the reference's `(sum / weight + 0.5f)`
   u16 truncation (cuda_depth_processing.cu:116),
@@ -21,13 +44,17 @@ Numerical parity notes (same as the JAX package):
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
+import operator
 import struct
 from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from . import cuda_build, launch_counts
 
 # Float pixel coordinates are clamped into this range before the int32
 # cast: far outside any image, yet exactly representable in f32 and int32.
@@ -122,9 +149,9 @@ def _shifted(padded: torch.Tensor, pad: int, dy: int, dx: int,
 @functools.lru_cache(maxsize=None)
 def _grid_term(radius: int, denom_xy: float, device) -> torch.Tensor:
     """(taps, 1, 1) f32 spatial exponents -(dx^2 + dy^2) / denom_xy of the
-    bilateral filter's taps, built once a (radius, denom, device): the
-    host-to-device copy that makes it cannot run inside a CUDA graph
-    capture, so the chunk step's warm-up builds it first."""
+    bilateral filter's taps, built once a (radius, denom, device) by a
+    host-to-device copy.  Only the plain version reads it; the kernel
+    computes the same terms on the card."""
     return torch.tensor([-(dx * dx + dy * dy) / denom_xy
                          for dy, dx in _bilateral_taps(radius)],
                         dtype=torch.float32, device=device)[:, None, None]
@@ -137,7 +164,7 @@ def _bilateral_taps(radius: int) -> list:
             if dx * dx + dy * dy <= radius * radius]
 
 
-def bilateral_filter_and_cutoff(
+def bilateral_filter_and_cutoff_reference(
     depth: torch.Tensor,
     sigma_xy: float,
     sigma_value_factor: float,
@@ -191,7 +218,7 @@ def bilateral_filter_and_cutoff(
     return out.to(torch.int32)
 
 
-def outlier_depth_map_fusion(
+def outlier_depth_map_fusion_reference(
     depth: torch.Tensor,
     other_depths: torch.Tensor,
     others_T_reference: torch.Tensor,
@@ -251,7 +278,7 @@ def outlier_depth_map_fusion(
     return torch.where(keep, depth, 0)
 
 
-def erode_depth(depth: torch.Tensor, radius: int) -> torch.Tensor:
+def erode_depth_reference(depth: torch.Tensor, radius: int) -> torch.Tensor:
     """ErodeDepthMapCUDA (cuda_depth_processing.cu:514-586).
 
     Zeroes a pixel unless every sample in its (2r+1)^2 box is valid; the
@@ -281,7 +308,7 @@ def copy_without_border(depth: torch.Tensor) -> torch.Tensor:
     return torch.where(interior, depth.to(torch.int32), 0)
 
 
-def compute_normals_and_drop_bad_pixels(
+def compute_normals_and_drop_bad_pixels_reference(
     depth: torch.Tensor,
     observation_angle_threshold_deg: float,
     depth_scaling: float,
@@ -355,7 +382,7 @@ def compute_normals_and_drop_bad_pixels(
     return out_depth, normals_xy
 
 
-def compute_point_radii_and_remove_isolated(
+def compute_point_radii_and_remove_isolated_reference(
     depth: torch.Tensor,
     point_radius_extension_factor: float,
     point_radius_clamp_factor: float,
@@ -420,6 +447,229 @@ def compute_point_radii_and_remove_isolated(
     # >= 8 valid neighbors required (cuda_depth_processing.cu:832-835).
     out_depth = torch.where(valid_center & (neighbor_count >= 8), depth, 0)
     return out_depth, radius_sq
+
+
+# -- the card route: csrc/preprocess.cu ---------------------------------
+
+# Largest bilateral radius the kernel takes (csrc/preprocess.cu
+# kMaxBilateralRadius: its spatial terms fill (radius^2 + 1) floats of
+# shared memory).
+MAX_BILATERAL_RADIUS = 64
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """csrc/preprocess.cu, built on first use (ops/cuda_build.py) and
+    loaded once."""
+    lib = ctypes.CDLL(str(cuda_build.build("preprocess")))
+    ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    lib.bilateral_launch.argtypes = [ptr, ptr, i32, i32, i32, f64, f64, i32,
+                                     f64, ptr]
+    lib.outlier_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
+                                   *[f64] * 10, ptr]
+    lib.erode_launch.argtypes = [ptr, ptr, i32, i32, i32, ptr]
+    lib.normals_launch.argtypes = [ptr, ptr, ptr, i32, i32, *[f64] * 7, ptr]
+    lib.radii_launch.argtypes = [ptr, ptr, ptr, i32, i32, *[f64] * 6, i32,
+                                 f64, ptr]
+    for name in ("bilateral", "outlier", "erode", "normals", "radii"):
+        getattr(lib, f"{name}_launch").restype = ctypes.c_int
+    lib.preprocess_max_bilateral_radius.restype = ctypes.c_int
+    if lib.preprocess_max_bilateral_radius() != MAX_BILATERAL_RADIUS:
+        raise RuntimeError("csrc/preprocess.cu and ops/preprocess.py "
+                           "disagree on the largest bilateral radius")
+    return lib
+
+
+def _on_card(name: str, *tensors: torch.Tensor) -> bool:
+    """True for the kernel route (every tensor on one CUDA device), False
+    for the plain route (every tensor on the CPU); raises otherwise."""
+    devices = {t.device for t in tensors}
+    if all(d.type == "cpu" for d in devices):
+        return False
+    if len(devices) == 1 and next(iter(devices)).type == "cuda":
+        return True
+    raise ValueError(f"{name}: tensors on {sorted(map(str, devices))}; the "
+                     f"kernels take one CUDA device, the plain code the CPU")
+
+
+def _depth_map(name: str, depth: torch.Tensor) -> torch.Tensor:
+    """The (H, W) depth map as the kernels read it: contiguous int32 (the
+    plain code's own first step is the int32 cast)."""
+    if depth.dim() != 2 or depth.dtype.is_floating_point or \
+            depth.dtype.is_complex or depth.dtype == torch.bool:
+        raise ValueError(f"{name}: depth must be an (H, W) integer map, got "
+                         f"{tuple(depth.shape)} {depth.dtype}")
+    return depth.to(torch.int32).contiguous()
+
+
+def _launch(depth: torch.Tensor, kernel: str, *args) -> None:
+    """Launch `kernel` with `args` on the current stream of the depth
+    map's device and count it in its pass's `launches`."""
+    with torch.cuda.device(depth.device):
+        err = getattr(load_library(), f"{kernel}_launch")(
+            *args, torch.cuda.current_stream(depth.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"preprocess {kernel} kernel launch failed: CUDA "
+                           f"error {err}")
+    KERNELS[kernel].launches += 1
+
+
+def _intrinsics(fx: float, fy: float, cx: float, cy: float) -> tuple:
+    """(fx_inv, fy_inv, cx_inv, cy_inv) as the plain passes compute them:
+    pixel-corner intrinsics (cuda_depth_processing.cu:258-264)."""
+    return 1.0 / fx, 1.0 / fy, -(cx - 0.5) / fx, -(cy - 0.5) / fy
+
+
+def bilateral_filter_and_cutoff(
+    depth: torch.Tensor,
+    sigma_xy: float,
+    sigma_value_factor: float,
+    radius_factor: float,
+    max_depth_u16: int,
+    depth_valid_region_radius: float,
+) -> torch.Tensor:
+    """bilateral_filter_and_cutoff_reference (its docstring has the
+    semantics) on a CPU tensor; one launch of csrc/preprocess.cu's
+    bilateral kernel on a CUDA tensor, bit for bit the same (int32)."""
+    name = "bilateral_filter_and_cutoff"
+    if not _on_card(name, depth):
+        return bilateral_filter_and_cutoff_reference(
+            depth, sigma_xy, sigma_value_factor, radius_factor,
+            max_depth_u16, depth_valid_region_radius)
+    depth = _depth_map(name, depth)
+    radius = int(radius_factor * sigma_xy + 0.5)
+    if not 0 <= radius <= MAX_BILATERAL_RADIUS:
+        raise ValueError(f"{name}: radius {radius} outside 0 .. "
+                         f"{MAX_BILATERAL_RADIUS}")
+    # int32 depths compare with the Python int as int32 values.
+    max_depth = min(max(operator.index(max_depth_u16), -2 ** 31), 2 ** 31 - 1)
+    out = torch.empty_like(depth)
+    _launch(depth, "bilateral", depth.data_ptr(), out.data_ptr(),
+            *depth.shape, radius, 2.0 * sigma_xy * sigma_xy,
+            float(sigma_value_factor), max_depth,
+            float(depth_valid_region_radius ** 2))
+    return out
+
+
+def outlier_depth_map_fusion(
+    depth: torch.Tensor,
+    other_depths: torch.Tensor,
+    others_T_reference: torch.Tensor,
+    fx: float, fy: float, cx: float, cy: float,
+    tolerance: float,
+    required_inliers: Optional[int] = None,
+) -> torch.Tensor:
+    """outlier_depth_map_fusion_reference on CPU tensors; one launch of
+    csrc/preprocess.cu's outlier kernel on CUDA tensors (the K frames in
+    order), bit for bit the same (int32)."""
+    name = "outlier_depth_map_fusion"
+    if not _on_card(name, depth, other_depths, others_T_reference):
+        return outlier_depth_map_fusion_reference(
+            depth, other_depths, others_T_reference, fx, fy, cx, cy,
+            tolerance, required_inliers)
+    depth = _depth_map(name, depth)
+    k = other_depths.shape[0]
+    if other_depths.shape != (k, *depth.shape) or \
+            other_depths.dtype.is_floating_point or \
+            others_T_reference.shape != (k, 3, 4):
+        raise ValueError(f"{name}: other_depths {tuple(other_depths.shape)} "
+                         f"{other_depths.dtype} and others_T_reference "
+                         f"{tuple(others_T_reference.shape)} must be (K, H, "
+                         f"W) integer maps and (K, 3, 4) transforms for an "
+                         f"{tuple(depth.shape)} depth map")
+    if required_inliers is None or required_inliers < 0:
+        required_inliers = k
+    others = other_depths.to(torch.int32).contiguous()
+    transforms = others_T_reference.to(torch.float32).contiguous()
+    out = torch.empty_like(depth)
+    _launch(depth, "outlier", depth.data_ptr(), others.data_ptr(),
+            transforms.data_ptr(), out.data_ptr(), *depth.shape, k,
+            required_inliers, fx, fy, cx, cy, *_intrinsics(fx, fy, cx, cy),
+            1.0 + tolerance, 1.0 - tolerance)
+    return out
+
+
+def erode_depth(depth: torch.Tensor, radius: int) -> torch.Tensor:
+    """erode_depth_reference on a CPU tensor; one launch of
+    csrc/preprocess.cu's erosion kernel on a CUDA tensor (radius 0:
+    copy_without_border), bit for bit the same (int32)."""
+    if not _on_card("erode_depth", depth):
+        return erode_depth_reference(depth, radius)
+    if radius < 0:
+        raise ValueError(f"erode_depth: radius {radius} < 0")
+    depth = _depth_map("erode_depth", depth)
+    out = torch.empty_like(depth)
+    _launch(depth, "erode", depth.data_ptr(), out.data_ptr(), *depth.shape,
+            radius)
+    return out
+
+
+def compute_normals_and_drop_bad_pixels(
+    depth: torch.Tensor,
+    observation_angle_threshold_deg: float,
+    depth_scaling: float,
+    fx: float, fy: float, cx: float, cy: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """compute_normals_and_drop_bad_pixels_reference on a CPU tensor; one
+    launch of csrc/preprocess.cu's normals kernel on a CUDA tensor, bit for
+    bit the same (out_depth int32, normals_xy (2, H, W) f32)."""
+    name = "compute_normals_and_drop_bad_pixels"
+    if not _on_card(name, depth):
+        return compute_normals_and_drop_bad_pixels_reference(
+            depth, observation_angle_threshold_deg, depth_scaling,
+            fx, fy, cx, cy)
+    depth = _depth_map(name, depth)
+    intrinsics = _intrinsics(fx, fy, cx, cy)
+    out = torch.empty_like(depth)
+    normals_xy = torch.empty((2, *depth.shape), dtype=torch.float32,
+                             device=depth.device)
+    _launch(depth, "normals", depth.data_ptr(), out.data_ptr(),
+            normals_xy.data_ptr(), *depth.shape, *intrinsics,
+            1.0 / depth_scaling, -1.0 if intrinsics[1] < 0 else 1.0,
+            -math.cos(math.pi / 180.0 * observation_angle_threshold_deg))
+    return out, normals_xy
+
+
+def compute_point_radii_and_remove_isolated(
+    depth: torch.Tensor,
+    point_radius_extension_factor: float,
+    point_radius_clamp_factor: float,
+    depth_scaling: float,
+    fx: float, fy: float, cx: float, cy: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """compute_point_radii_and_remove_isolated_reference on a CPU tensor;
+    one launch of csrc/preprocess.cu's radii kernel on a CUDA tensor, bit
+    for bit the same (out_depth int32, radius_sq f32)."""
+    name = "compute_point_radii_and_remove_isolated"
+    if not _on_card(name, depth):
+        return compute_point_radii_and_remove_isolated_reference(
+            depth, point_radius_extension_factor, point_radius_clamp_factor,
+            depth_scaling, fx, fy, cx, cy)
+    depth = _depth_map(name, depth)
+    clamp_term = point_radius_clamp_factor ** 2 * 2.0
+    out = torch.empty_like(depth)
+    radius_sq = torch.empty(depth.shape, dtype=torch.float32,
+                            device=depth.device)
+    _launch(depth, "radii", depth.data_ptr(), out.data_ptr(),
+            radius_sq.data_ptr(), *depth.shape, *_intrinsics(fx, fy, cx, cy),
+            1.0 / depth_scaling, point_radius_extension_factor ** 2,
+            int(math.isfinite(clamp_term)), clamp_term)
+    return out, radius_sq
+
+
+# The card route's kernels (csrc/preprocess.cu), by name, and the passes
+# that launch them.
+KERNELS = {"bilateral": bilateral_filter_and_cutoff,
+           "outlier": outlier_depth_map_fusion,
+           "erode": erode_depth,
+           "normals": compute_normals_and_drop_bad_pixels,
+           "radii": compute_point_radii_and_remove_isolated}
+for _kernel, _pass in KERNELS.items():
+    launch_counts.register(f"preprocess_{_kernel}", _pass)
+
+
+def launches() -> dict:
+    """Each preprocessing kernel's launches so far, by kernel name."""
+    return {kernel: fn.launches for kernel, fn in KERNELS.items()}
 
 
 def _valid_median(samples: torch.Tensor, dim: int):

@@ -306,14 +306,15 @@ class ReconstructionPipeline:
 
     def trace_counters(self) -> dict:
         """The counters the tracer reports (utils/timing.py), read where
-        they live: this pipeline's and the process's blending launches and
-        kernel builds."""
+        they live: this pipeline's, and the process's blending and
+        preprocessing kernel launches and kernel builds."""
         return {"graph_captures": self.graph_captures,
                 "graph_replays": self.graph_replays,
                 "bucket_picks": len(self.bucket_pick_log),
                 "snapshots": self.snapshot_count,
                 "snapshot_rows_shipped": self.snapshot_rows_shipped,
                 "blend_launches": blend.blend_core.launches,
+                "preprocess_launches": sum(pp.launches().values()),
                 "kernel_builds": cuda_build.builds}
 
     def _log_device_memory(self) -> None:

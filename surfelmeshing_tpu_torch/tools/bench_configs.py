@@ -13,8 +13,9 @@ the host clock, ending in a device synchronisation.
 
 Prints one JSON line per config with the JAX tool's keys, plus the run's
 counters: peak_mib (peak device memory allocated, null on the CPU),
-fused_frames and blend_launches (launches of csrc/blend.cu; 0 on the CPU,
-where blending runs its plain version).  The device defaults to cuda and
+fused_frames, blend_launches (launches of csrc/blend.cu) and
+preprocess_launches (each csrc/preprocess.cu kernel's, by name), 0 on the
+CPU, where both run their plain versions.  The device defaults to cuda and
 the tool fails without a GPU.
 """
 
@@ -27,6 +28,7 @@ import time
 import torch
 
 from ..ops import blend
+from ..ops import preprocess as pp
 from ..ops.fusion import create_surfel_state
 from .bench_configs_common import (AutoBudgetPolicy, BenchEnv, parse_size,
                                    peak_mib)
@@ -50,6 +52,7 @@ def run_config(cfg: str, env: BenchEnv, trajectory: str) -> dict:
     policy = AutoBudgetPolicy(cap, TILE, params.max_creations_per_frame,
                               env.W, env.H) if auto else None
     launches = blend.blend_core.launches
+    preprocess = pp.launches()
 
     def step(state, i):
         p = policy.params_for_frame(params) if auto else params
@@ -87,6 +90,8 @@ def run_config(cfg: str, env: BenchEnv, trajectory: str) -> dict:
         "peak_mib": peak_mib(device),
         "fused_frames": WARMUP + n,
         "blend_launches": blend.blend_core.launches - launches,
+        "preprocess_launches": {k: n - preprocess[k]
+                                for k, n in pp.launches().items()},
     }
 
 

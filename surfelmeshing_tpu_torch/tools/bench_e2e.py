@@ -29,8 +29,9 @@ compiles_in_timed_region counts nvcc / g++ builds.  Added counters of the
 run: graph_captures (CUDA graphs captured in the reported timed region),
 peak_mib (peak device memory allocated, null on the CPU),
 skipped_tiles (tiles past the active budget in the final state),
-fused_frames and blend_launches (launches of csrc/blend.cu; 0 on the
-CPU, where blending runs its plain version) and, for BUDGET 0,
+fused_frames, blend_launches (launches of csrc/blend.cu) and
+preprocess_launches (each csrc/preprocess.cu kernel's, by name), 0 on the
+CPU, where both run their plain versions, and, for BUDGET 0,
 bucket_picks (the timed chunks' n_eff).  The device defaults to cuda and
 the tool fails without a GPU.
 """
@@ -50,6 +51,7 @@ from ..config import SurfelMeshingConfig
 from ..io.synthetic import synthetic_rgbd_video
 from ..meshing import MeshingDriver
 from ..ops import blend, cuda_build
+from ..ops import preprocess as pp
 from ..pipeline import ReconstructionPipeline
 from .bench_configs_common import parse_size, peak_mib
 
@@ -75,6 +77,7 @@ def run_config(cfg_str: str, video, device, step: int = 65_536) -> dict:
     pipe = ReconstructionPipeline(cfg, video.depth_camera, device)
     mesher = MeshingDriver(cfg)
     launches = blend.blend_core.launches
+    preprocess = pp.launches()
 
     half = cfg.outlier_filtering_frame_count // 2
     lo, hi = half, video.frame_count - half
@@ -151,6 +154,8 @@ def run_config(cfg_str: str, video, device, step: int = 65_536) -> dict:
         "skipped_tiles": int(pipe.state.skipped_tile_count),
         "fused_frames": fused,
         "blend_launches": blend.blend_core.launches - launches,
+        "preprocess_launches": {k: n - preprocess[k]
+                                for k, n in pp.launches().items()},
         **({"bucket_picks": [n for _, n in
                              pipe.bucket_pick_log[picks_before:]]}
            if budget == 0 else {}),

@@ -37,7 +37,8 @@ from surfelmeshing_tpu_torch.config import SurfelMeshingConfig
 from surfelmeshing_tpu_torch.io.synthetic import (default_camera,
                                                   synthetic_rgbd_video)
 from surfelmeshing_tpu_torch.meshing import MeshingDriver
-from surfelmeshing_tpu_torch.ops import blend
+from surfelmeshing_tpu_torch.ops import blend, launch_counts
+from surfelmeshing_tpu_torch.ops import preprocess as pp
 from surfelmeshing_tpu_torch.ops import fusion as TF
 from surfelmeshing_tpu_torch.pipeline import ReconstructionPipeline
 
@@ -271,10 +272,11 @@ def test_chunk_graphs_match_per_frame_on_cuda():
         pytest.skip("needs an NVIDIA GPU (chip_smoke.py's [chunk] phase "
                     "runs the same check on the card)")
     per_frame = run_port(port_config(), device="cuda")
-    blend.set_launch_counts((0, 0, 0))
+    launch_counts.zero()
     chunked = run_port(port_config(frame_chunk=4), read_after=6,
                        device="cuda")
-    assert blend.launch_counts()[0] == 8
+    assert blend.blend_core.launches == 8
+    assert pp.launches() == dict.fromkeys(pp.KERNELS, 8)
     assert chunked.graph_captures >= 1
     assert chunked.graph_replays == len(chunked.bucket_pick_log)
     assert_bit_identical(chunked.state, per_frame.state, counters=COUNTERS)

@@ -212,7 +212,8 @@ def test_every_fused_frame_has_one_frame_span(runs, chunk):
         "bucket_picks": len(pipe.bucket_pick_log),
         "snapshots": len(SNAPSHOT_AT),
         "snapshot_rows_shipped": pipe.snapshot_rows_shipped,
-        "blend_launches": 0, "kernel_builds": 0}]
+        "blend_launches": 0, "preprocess_launches": 0,
+        "kernel_builds": 0}]
 
 
 @pytest.mark.parametrize("chunk", [1, 4])
