@@ -17,8 +17,12 @@ host for the sub-chunk's ~2,800 launches a frame, the role of JAX's
 (length, bucket) compile.  Before the first capture of a key the body
 runs once on a scratch copy of the map (kernel libraries loaded, every
 op's device code loaded, cached constants built); neither the warm-up
-nor the capture advances the map.  All graphs draw on one memory pool:
-replays never overlap and nothing allocated in a capture outlives it.
+nor the capture advances the map.  Each graph draws on a memory pool of
+its own (nothing allocated in a capture outlives it), freed with the
+graph.  A map growing through many buckets would otherwise pile up one
+graph and its pool a bucket: before a capture, the graphs whose n_eff
+lies below `least_n_eff` (the smallest bucket the dispatch policy can
+still pick, set by the pipeline) are dropped and their memory released.
 A capture or replay failure raises; nothing falls back to eager
 dispatch.
 
@@ -114,7 +118,9 @@ class ChunkStep:
     captures, replays and capture_s count the graphs captured (warm-up
     included in the seconds), the replays and the host seconds they
     took; keys lists the captured (frames, n_eff, active_surfel_budget)
-    in capture order."""
+    in capture order; retired counts the graphs dropped as unreachable.
+    least_n_eff is the smallest n_eff the caller's dispatch can still
+    pick (0: any)."""
 
     def __init__(self, config, device, pp_kwargs: dict):
         self.device = device
@@ -125,8 +131,9 @@ class ChunkStep:
         self._buffers = None      # (depth, color, poses), at first run
         self._graphs = {}         # key -> (CUDAGraph, launch counts)
         self._bound = None        # the map the graphs write
-        self._pool = None
         self._eager_logged = False
+        self.least_n_eff = 0
+        self.retired = 0
         self.captures = 0
         self.replays = 0
         self.capture_s = 0.0
@@ -177,6 +184,7 @@ class ChunkStep:
         if key not in self._graphs:
             if traced:
                 tracer.begin("chunk.capture", last)
+            self._retire_unreachable()
             self._graphs[key] = self._capture(state, size, params, n_eff)
             if traced:
                 tracer.end()
@@ -254,6 +262,17 @@ class ChunkStep:
 
     # -- CUDA graphs ----------------------------------------------------
 
+    def _retire_unreachable(self) -> None:
+        """Drop the graphs whose n_eff lies below least_n_eff and release
+        the cached memory of their pools (a capture synchronises the
+        device anyway)."""
+        old = [k for k in self._graphs if k[1] < self.least_n_eff]
+        for k in old:
+            del self._graphs[k]
+        if old:
+            self.retired += len(old)
+            torch.cuda.empty_cache()
+
     def _capture(self, state: SurfelState, size: int, params: FusionParams,
                  n_eff: int) -> tuple:
         """Warm the body up on a scratch copy of the map, then capture it
@@ -266,14 +285,11 @@ class ChunkStep:
         with torch.cuda.stream(side):
             self._body(clone_state(state), size, params, n_eff)
         current.wait_stream(side)
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
         if tracer.on:             # torch.cuda.graph synchronises first
             tracer.wait("capture", block=stream_sync(self.device))
         before = launch_counts.snapshot()
-        with torch.cuda.graph(graph, pool=self._pool,
-                              capture_error_mode="thread_local"):
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             self._body(state, size, params, n_eff)
         captured = launch_counts.since(before)
         launch_counts.restore(counts)

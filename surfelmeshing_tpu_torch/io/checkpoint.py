@@ -4,7 +4,8 @@ Version 4 of surfelmeshing_tpu/io/checkpoint.py: one compressed npz with
 `version`, `frame_index` and one array per state field, the tiled path's
 skipped_tile_count and active_tile_count included.  Checkpoints
 interchange both ways; a missing scalar counter loads as 0, as in the JAX
-package.  The meshing engine is rebuilt from the fused surfels on resume.
+package (whose state has no deferred_count: its loader skips it).  The
+meshing engine is rebuilt from the fused surfels on resume.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from ..ops.fusion import SurfelState, state_from_numpy, state_to_numpy
 
 FORMAT_VERSION = 4    # v4 adds the nbr_dist stored-slot-distance array
 _COUNTERS = ("surfel_count", "merge_count", "overflow_count",
-             "skipped_tile_count", "active_tile_count")
+             "deferred_count", "skipped_tile_count", "active_tile_count")
 
 
 def save_checkpoint(path: str, state: SurfelState, frame_index: int) -> None:

@@ -74,6 +74,9 @@ class SurfelState:
     surfel_count: torch.Tensor    # () int32
     merge_count: torch.Tensor     # () int32
     overflow_count: torch.Tensor  # () int32: creations dropped at capacity
+    deferred_count: torch.Tensor  # () int32: creations deferred to a later
+                                  #   frame by the per-frame budget or the
+                                  #   bucket (running total)
     skipped_tile_count: torch.Tensor  # () int32: tiles past the active budget
     active_tile_count: torch.Tensor   # () int32: tiles the last tiled frame
                                       #   wanted (frontier + flagged)
@@ -107,15 +110,17 @@ def create_surfel_state(capacity: int, device) -> SurfelState:
         surfel_count=_scalar(0, device),
         merge_count=_scalar(0, device),
         overflow_count=_scalar(0, device),
+        deferred_count=_scalar(0, device),
         skipped_tile_count=_scalar(0, device),
         active_tile_count=_scalar(0, device))
 
 
 def state_from_numpy(pack, neighbors, nbr_dist, surfel_count, merge_count,
                      overflow_count, device, skipped_tile_count=0,
-                     active_tile_count=0) -> SurfelState:
+                     active_tile_count=0, deferred_count=0) -> SurfelState:
     """A state from host arrays (e.g. the JAX package's state, converted
-    with np.asarray); bit patterns of the int32 columns are kept."""
+    with np.asarray, which has no deferred_count); bit patterns of the
+    int32 columns are kept."""
     device = resolve_device(device)
 
     def tensor(a, dtype):
@@ -128,6 +133,7 @@ def state_from_numpy(pack, neighbors, nbr_dist, surfel_count, merge_count,
         surfel_count=tensor(surfel_count, np.int32).reshape(()),
         merge_count=tensor(merge_count, np.int32).reshape(()),
         overflow_count=tensor(overflow_count, np.int32).reshape(()),
+        deferred_count=tensor(deferred_count, np.int32).reshape(()),
         skipped_tile_count=tensor(skipped_tile_count, np.int32).reshape(()),
         active_tile_count=tensor(active_tile_count, np.int32).reshape(()))
 
@@ -520,12 +526,14 @@ def integrate_frame_bucketed(
     (pipeline.shape_bucket_for); capacity tests inside the step then see
     n_eff, so creations that do not fit under it are deferred to the next
     frame, as in the JAX package.  overflow_count counts only creations
-    dropped at the capacity; the JAX function counts the deferred ones
-    too (ROADMAP queue 3 #8).  The input state is consumed on every
-    route: the returned state's pack, neighbors and nbr_dist are the
-    input's tensors holding the new rows (its counters are new tensors;
-    the input's are stale), the counterpart of the JAX function's donated
-    state, so a CUDA graph of the step writes the map's fixed tensors.
+    dropped at the capacity and deferred_count those deferred by the
+    bucket or the per-frame budget; the JAX function's overflow_count
+    counts the bucket-deferred ones too (ROADMAP queue 3 #8).  The input
+    state is consumed on every route: the returned state's pack,
+    neighbors and nbr_dist are the input's tensors holding the new rows
+    (its counters are new tensors; the input's are stale), the
+    counterpart of the JAX function's donated state, so a CUDA graph of
+    the step writes the map's fixed tensors.
     n_eff >= capacity runs integrate_frame's routes over the whole map:
     the tiled one writes its working tiles into the input's tensors
     directly (no full-map copy), the full-shape one copies its result
@@ -1095,11 +1103,12 @@ def _integrate_body(state, depth, normals_xy, radius_img, color,
     img = dict(meas=depth_post_flat, pgx=pgx, pgy=pgy, pgz=pgz,
                ngx=ngx, ngy=ngy, ngz=ngz, cr=cr, cg=cg, cb=cb,
                radius=radius_flat)
-    pack, neighbors, nbr_dist, surfel_count, overflow_count = \
-        _create_new_surfels(params, depth, supporting_surfels, conflict_free,
-                            img, sup_shift, pack, neighbors, nbr_dist,
-                            state.surfel_count, state.overflow_count,
-                            frame_index, idx, gpack, capacity)
+    pack, neighbors, nbr_dist, surfel_count, overflow_count, \
+        deferred_count = _create_new_surfels(
+            params, depth, supporting_surfels, conflict_free, img,
+            sup_shift, pack, neighbors, nbr_dist, state.surfel_count,
+            state.overflow_count, state.deferred_count, frame_index, idx,
+            gpack, capacity)
     tap("pack_after_create", pack)
     tap("neighbors_after_create", neighbors)
     tap("surfel_count_after_create", surfel_count)
@@ -1121,7 +1130,7 @@ def _integrate_body(state, depth, normals_xy, radius_img, color,
     return dataclasses.replace(
         state, pack=pack, neighbors=neighbors, nbr_dist=nbr_dist,
         surfel_count=surfel_count, merge_count=merge_count,
-        overflow_count=overflow_count)
+        overflow_count=overflow_count, deferred_count=deferred_count)
 
 
 def _pixel_coords(hw: int, w: int, device):
@@ -1242,8 +1251,8 @@ def _update_neighbors(params, idx, active, lx, ly, z, px, py, pack,
 
 def _create_new_surfels(params, depth, supporting_surfels, conflict_free,
                         img, sup_shift, pack, neighbors, nbr_dist,
-                        surfel_count, overflow_count, frame_index, idx,
-                        gpack, capacity=None):
+                        surfel_count, overflow_count, deferred_count,
+                        frame_index, idx, gpack, capacity=None):
     """Append a surfel for every unexplained valid depth pixel
     (kernels.cu:90-271).  Flagged pixels are compacted by a cumsum in
     row-major pixel order (the reference's DeviceScan::ExclusiveSum,
@@ -1253,7 +1262,10 @@ def _create_new_surfels(params, depth, supporting_surfels, conflict_free,
     and supporter rows are read by global index from `gpack`; new rows
     land in the rows of `pack` whose global index `idx` is theirs.
     `capacity` (default: gpack's rows) is the map's, for overflow_count
-    only: creations past gpack's rows but under it are deferred."""
+    only: creations past gpack's rows but under it are deferred.  Of the
+    flagged pixels, those neither created nor dropped at capacity are
+    deferred (past the budget or the bucket) and added to
+    deferred_count."""
     h, w = params.height, params.width
     hw = h * w
     n = gpack.shape[0]       # full capacity (pack may be a working set)
@@ -1363,12 +1375,13 @@ def _create_new_surfels(params, depth, supporting_surfels, conflict_free,
     nbr_dist = torch.where(take[None, :], dists_c[:, jc], nbr_dist)
 
     # Overflow counts only capacity-dropped creations; budget- and
-    # bucket-deferred ones retry next frame.
+    # bucket-deferred ones retry next frame and count as deferred.
     if capacity is not None:
         free = (capacity - surfel_count).clamp_min(0)
     capacity_short = (total.clamp_max(c_budget) - free).clamp_min(0)
     return (pack, neighbors, nbr_dist, surfel_count + created,
-            overflow_count + capacity_short)
+            overflow_count + capacity_short,
+            deferred_count + (total - created - capacity_short))
 
 
 def _regularize(params, pack, neighbors, nbr_dist, frame_index,

@@ -233,8 +233,12 @@ class ReconstructionPipeline:
         # surfel count and tile demand, the frames dispatched since, the
         # FIFO of in-flight readbacks (host tensor, CUDA event or None) and
         # recent per-frame growth samples (for adaptive_creation_bound).
+        # The same readbacks confirm the creations made (count growth) and
+        # the map's deferred-creation total, for the tracer's counters.
         self._confirmed_count = 0
         self._lagged_active_tiles = 0
+        self._confirmed_deferred = 0
+        self._creations_made = 0
         self._unconfirmed_frames = 0
         self._pending_counts = []
         self._growth_window = []
@@ -263,8 +267,10 @@ class ReconstructionPipeline:
         self._pending_counts = []
         self._unconfirmed_frames = 0
         self._growth_window = []
-        self._confirmed_count, self._lagged_active_tiles = torch.stack(
-            [value.surfel_count, value.active_tile_count]).tolist()
+        self._confirmed_count, self._lagged_active_tiles, \
+            self._confirmed_deferred = torch.stack(
+                [value.surfel_count, value.active_tile_count,
+                 value.deferred_count]).tolist()
         self._adopt(value, copy=False)
 
     def _adopt(self, value: SurfelState, copy: bool) -> None:
@@ -307,8 +313,13 @@ class ReconstructionPipeline:
     def trace_counters(self) -> dict:
         """The counters the tracer reports (utils/timing.py), read where
         they live: this pipeline's, and the process's blending and
-        preprocessing kernel launches and kernel builds."""
-        return {"graph_captures": self.graph_captures,
+        preprocessing kernel launches and kernel builds.  creations.made
+        and creations.deferred are as far as the count readbacks have
+        confirmed them (no wait: they lag the dispatches by the readbacks
+        still in flight; a fixed active budget starts none)."""
+        return {"creations.made": self._creations_made,
+                "creations.deferred": self._confirmed_deferred,
+                "graph_captures": self.graph_captures,
                 "graph_replays": self.graph_replays,
                 "bucket_picks": len(self.bucket_pick_log),
                 "snapshots": self.snapshot_count,
@@ -496,6 +507,11 @@ class ReconstructionPipeline:
             size = 1 << (len(pending).bit_length() - 1)
             entries, pending = pending[:size], pending[size:]
             params, n_eff = self._pick_params_and_bucket(frames=size)
+            if self.config.active_surfel_budget == 0:
+                # Every later pick holds at least the confirmed count,
+                # until the map is replaced.
+                self._chunk.least_n_eff = \
+                    self.shape_bucket_for(self._confirmed_count)
             self._chunk.run(self._state, entries, params, n_eff)
             self._queue_count_readback(frames=size)
         t1 = time.perf_counter()
@@ -531,13 +547,14 @@ class ReconstructionPipeline:
         return params, n_eff
 
     def _queue_count_readback(self, frames: int) -> None:
-        """Start the copy of (surfel_count, active_tile_count) to the host
-        without waiting for it (buckets or the auto budget), charged for
-        the dispatch's `frames` frames."""
+        """Start the copy of (surfel_count, active_tile_count,
+        deferred_count) to the host without waiting for it (buckets or the
+        auto budget), charged for the dispatch's `frames` frames."""
         if self.config.active_surfel_budget > 0:
             return
+        st = self._state
         self._pending_counts.append(start_readback(torch.stack(
-            [self._state.surfel_count, self._state.active_tile_count]))
+            [st.surfel_count, st.active_tile_count, st.deferred_count]))
             + (frames,))
         self._unconfirmed_frames += frames
 
@@ -558,10 +575,12 @@ class ReconstructionPipeline:
                     tracer.wait("readback", block=event.synchronize)
                 else:
                     event.synchronize()
-            new_count, active_tiles = values.tolist()
+            new_count, active_tiles, deferred = values.tolist()
             self._growth_window.append(
                 (new_count - self._confirmed_count + frames - 1) // frames)
             del self._growth_window[:-4]
+            self._creations_made += new_count - self._confirmed_count
+            self._confirmed_deferred = deferred
             self._confirmed_count = new_count
             self._lagged_active_tiles = active_tiles
             self._unconfirmed_frames -= frames

@@ -59,7 +59,9 @@ def program_metrics(rec: dict, frames: int, main: str) -> dict:
     self time of input.depth and input.stage; preprocess_device_ms_per_frame
     and fusion_device_ms_per_frame: dev.preprocess.* and dev.fusion.* spans,
     which bracket idle time too (busy_within reads the busy time inside
-    them); snapshot_wait_ms: wait.snapshot per snapshot span), the sum of
+    them); snapshot_wait_ms: wait.snapshot per snapshot span), the
+    creations made and deferred a frame (the pipelines' creations.*
+    counters, as far as the count readbacks confirmed them), the sum of
     the frame spans, and the breakdown by span name."""
     spans = rec["spans"]
     loop = [s for s in spans if s["thread"] == main]
@@ -87,6 +89,8 @@ def program_metrics(rec: dict, frames: int, main: str) -> dict:
     fus = sum(v for n, v in dev.items() if n.startswith("dev.fusion."))
     snaps = count["snapshot"]
     mesher = [s for s in spans if s["name"] == "mesher.iteration"]
+    made, deferred = (sum(p.get(k, 0) for p in rec["pipelines"])
+                      for k in ("creations.made", "creations.deferred"))
     return {
         "host_wait_ms_per_frame": 1e3 * sum(map(dur, waits)) / frames,
         "host_waits_per_frame": sum(rec["host_waits"].values()) / frames,
@@ -95,6 +99,8 @@ def program_metrics(rec: dict, frames: int, main: str) -> dict:
         "fusion_device_ms_per_frame": 1e3 * fus / frames,
         "snapshot_wait_ms": 1e3 * wait_by["wait.snapshot"][1] / snaps
         if snaps else None,
+        "creations_made_per_frame": made / frames,
+        "creations_deferred_per_frame": deferred / frames,
         "frame_span_s": sum(dur(s) for s in loop if s["name"] == "frame"),
         "self_ms_per_frame": {n: 1e3 * v / frames for n, v in
                               sorted(self_s.items(), key=lambda x: -x[1])},
@@ -302,6 +308,7 @@ BRIEF = ("tracer", "frames", "fps", "host_dispatch_ms_per_frame",
          "preprocess_device_ms_per_frame", "fusion_device_ms_per_frame",
          "snapshot_wait_ms", "frame_vs_process_frame", "same_numbers",
          "preprocess_busy_ms_per_frame", "fusion_busy_ms_per_frame",
+         "creations_made_per_frame", "creations_deferred_per_frame",
          "captures")
 
 

@@ -30,7 +30,8 @@ object, no event, no synchronisation.  While it is on:
   reads the host clock and its spans are host times of the ops.
 - counters: host_waits by site, h2d_bytes.pageable / .pinned (input
   copies to the device), d2h_bytes (snapshot copies); the counters kept
-  elsewhere (graph captures and replays, bucket picks, snapshots and rows
+  elsewhere (creations made and deferred as the count readbacks confirm
+  them, graph captures and replays, bucket picks, snapshots and rows
   shipped, blending launches, kernel builds) are read where they live,
   from every watched pipeline, and reported as their change.
 - with start(profile=True) every host span is also a
@@ -342,11 +343,14 @@ tracer = Tracer()
 def trace_report(records: dict) -> str:
     """Tracer.stop()'s records as the app logs them: the spans' seconds by
     name in a Timing report (host spans of the frame loop and the mesher,
-    wait.* spans, device spans dev.*), then the counters."""
+    wait.* spans, device spans dev.*), then the counters, and the
+    creations the watched pipelines made and deferred."""
     spans = Timing()
     for s in records["spans"]:
         spans.add_time(s["name"], s["end"] - s["start"])
     counters = {k: records[k] for k in ("dropped", "host_waits",
                                         *Tracer.BYTES, "pipelines")}
+    creations = {k: sum(p.get(k, 0) for p in records["pipelines"])
+                 for k in ("creations.made", "creations.deferred")}
     return spans.report(title="Traced spans (seconds):") + \
-        f"\nTraced counters: {counters}"
+        f"\nTraced counters: {counters}\nTraced creations: {creations}"

@@ -170,7 +170,8 @@ def test_playback_keyframes_drive_the_view(tmp_path, monkeypatch):
 def _jax_state(state: TF.SurfelState):
     from surfelmeshing_tpu.ops.fusion import SurfelState as JaxState
     host = TF.state_to_numpy(state)
-    return JaxState(**{k: jax.numpy.asarray(v) for k, v in host.items()})
+    return JaxState(**{k: jax.numpy.asarray(host[k])
+                       for k in JaxState._fields})
 
 
 class _Stub:

@@ -236,8 +236,8 @@ def test_resume_seeds_the_count_bound():
     jax_pipe = JaxPipeline(dataclasses.replace(CONFIG,
                                                use_shape_buckets=True),
                            default_camera(W, H))
-    jax_pipe.state = JF.SurfelState(**{k: jnp.asarray(v)
-                                       for k, v in saved.items()})
+    jax_pipe.state = JF.SurfelState(**{k: jnp.asarray(saved[k])
+                                       for k in JF.SurfelState._fields})
     assert jax_pipe._confirmed_count == 0
     assert jax_pipe.shape_bucket_for(jax_pipe._count_bound(1)) < count
 

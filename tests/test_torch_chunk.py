@@ -194,8 +194,8 @@ def test_growth_sample_per_frame_matches_jax():
              JaxPipeline(cfg, default_camera(W, H)))
     for count, frames in ((1000, 3), (1905, 2)):
         port, ref = pipes
-        port._pending_counts.append(
-            (torch.tensor([count, 0], dtype=torch.int32), None, frames))
+        port._pending_counts.append(      # count, tiles, deferred
+            (torch.tensor([count, 0, 0], dtype=torch.int32), None, frames))
         ref._pending_counts.append((jnp.array([count, 0], jnp.int32),
                                     frames))
         for p in pipes:

@@ -107,8 +107,9 @@ def assert_bit_identical(got: TF.SurfelState, want: TF.SurfelState,
 
 
 def to_jax(state: TF.SurfelState) -> JF.SurfelState:
-    return JF.SurfelState(**{k: jnp.asarray(v) for k, v in
-                             TF.state_to_numpy(state).items()})
+    host = TF.state_to_numpy(state)
+    return JF.SurfelState(**{k: jnp.asarray(host[k])
+                             for k in JF.SurfelState._fields})
 
 
 def jax_step(jstate, inputs, frame, params):

@@ -35,7 +35,8 @@ from surfelmeshing_tpu_torch.io.synthetic import synthetic_rgbd_video
 from surfelmeshing_tpu_torch.meshing import MeshingDriver
 from surfelmeshing_tpu_torch.ops import preprocess as TP
 from surfelmeshing_tpu_torch.tools import trace_cells
-from surfelmeshing_tpu_torch.utils.timing import COLUMNS, Tracer, tracer
+from surfelmeshing_tpu_torch.utils.timing import (COLUMNS, Tracer,
+                                                   trace_report, tracer)
 
 torch.set_num_threads(1)
 
@@ -208,12 +209,26 @@ def test_every_fused_frame_has_one_frame_span(runs, chunk):
                 "flush" in children(spans, spans.index(s))] == [6]
         assert not device          # the CPU runs no graph replays
     assert records["pipelines"] == [{
+        "creations.made": int(pipe.state.surfel_count),
+        "creations.deferred": int(pipe.state.deferred_count),
         "graph_captures": 0, "graph_replays": 0,
         "bucket_picks": len(pipe.bucket_pick_log),
         "snapshots": len(SNAPSHOT_AT),
         "snapshot_rows_shipped": pipe.snapshot_rows_shipped,
         "blend_launches": 0, "preprocess_launches": 0,
         "kernel_builds": 0}]
+
+
+@pytest.mark.parametrize("chunk", [1, 4])
+def test_report_lists_the_creations(runs, chunk):
+    """trace_report names creations.made and creations.deferred: the
+    budget of 512 creations a frame binds on the 64x48 frames."""
+    _, _, (pipe, _, _, records) = runs[chunk]
+    made, deferred = int(pipe.state.surfel_count), \
+        int(pipe.state.deferred_count)
+    assert deferred > 0
+    assert f"Traced creations: {{'creations.made': {made}, " \
+        f"'creations.deferred': {deferred}}}" in trace_report(records)
 
 
 @pytest.mark.parametrize("chunk", [1, 4])
@@ -462,10 +477,10 @@ def test_app_traces_on_card(cuda_device, tmp_path, monkeypatch):
 
 def test_trace_cells_reads_a_cell_on_the_cpu(tmp_path):
     """tools/trace_cells on a benchmark cell at its CPU-test size: the
-    stretches alternate the tracer, the traced ones read the six metrics
-    and frame spans that sum to the benchmark's process_frame spans, the
-    program's spans change no number of the device summary, and the
-    check passes."""
+    stretches alternate the tracer, the traced ones read the six metrics,
+    the creations a frame and frame spans that sum to the benchmark's
+    process_frame spans, the program's spans change no number of the
+    device summary, and the check passes."""
     assert trace_cells.main([
         "--workload", "tum640_20m_defaults.explore.live", "--seed",
         "2147483999", "--window", "0.5", "--stretch", "0.5", "--pairs",
@@ -485,6 +500,8 @@ def test_trace_cells_reads_a_cell_on_the_cpu(tmp_path):
     assert traced["host_waits_per_frame"] > 0
     assert traced["preprocess_device_ms_per_frame"] > 0
     assert traced["fusion_device_ms_per_frame"] > 0
+    assert traced["creations_made_per_frame"] > 0
+    assert traced["creations_deferred_per_frame"] >= 0
     assert traced["dropped"] == 0
     assert checks["checks"] and all(
         value <= limit for value, limit in checks["checks"].values())
