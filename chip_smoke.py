@@ -6,8 +6,8 @@ Phases, each printing one or more lines:
   1. device: requires CUDA (exits non-zero otherwise), prints the card and
      its power limit, turns TF32 off;
   2. build: compiles csrc/blend.cu, blend_wide.cu (both with the shared
-     header blend_common.cuh), gather.cu, l2_read.cu and preprocess.cu
-     (one nvcc each)
+     header blend_common.cuh), gather.cu, l2_read.cu, preprocess.cu and
+     association.cu (one nvcc each)
      and the native mesher (g++), all started together;
   3. kernel: the one-launch blending kernel bit for bit against its plain
      PyTorch version on seeded maps at 640x480 with radii 1, 2, 3, 6, 12
@@ -30,11 +30,18 @@ Phases, each printing one or more lines:
      kernel and none of the others a call, and
      its device, host-inclusive and plain times beside its bound
      (tools/kernel_timing.py::preprocess_times);
+     association: csrc/association.cu's two kernels (the min-depth map;
+     the support maps, and without sums the conflictor map) bit for bit
+     against their plain scatters on a seeded Replica-sized map (7.5M
+     rows, 1200x680), one launch of its own kernel a call, and their
+     device, host-inclusive and plain times beside their bounds, with the
+     plain scatters alone over all entries and over the in-image ones
+     (tools/kernel_timing.py::association_times);
   4. slice: ReconstructionPipeline at 640x480 with 500k surfel capacity and
      default settings over the 24-frame synthetic video, every frame with a
      full outlier window fused; launch counts, zeroed just before, prove
      the kernels ran: one blending launch and one of each preprocessing
-     kernel a fused frame;
+     and association kernel a fused frame;
   5. kernel on the slice's own blending inputs (captured through the taps
      on the last warm-up frame, the map holding surfels by then), bit for
      bit, and its device time on them; the same for the wide path at
@@ -200,6 +207,7 @@ from surfelmeshing_tpu_torch.io.synthetic import (default_camera,
                                                   write_tum_dataset)
 from surfelmeshing_tpu_torch.io.tum import read_tum_rgbd_dataset
 from surfelmeshing_tpu_torch.meshing import MeshingDriver, engine
+from surfelmeshing_tpu_torch.ops import association as A
 from surfelmeshing_tpu_torch.ops import blend, cuda_build, launch_counts
 from surfelmeshing_tpu_torch.ops import fusion as F
 from surfelmeshing_tpu_torch.ops import gather as G
@@ -221,7 +229,7 @@ from surfelmeshing_tpu_torch.viewer.probe import (MeshProbe, free_port,
 SCALE = 5000.0
 WARMUP_FRAMES = 4
 KERNEL_SOURCES = ("blend", "blend_wide", "gather", "l2_read",
-                  "preprocess")
+                  "preprocess", "association")
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM3 bytes/s and
 # f32 operations/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -449,6 +457,53 @@ def phase_preprocess(device) -> list:
     return [dict(r, max_abs_err=0.0, library_ms=None) for r in rows]
 
 
+REPLICA_ROWS = 7_500_000
+
+
+def phase_association(device) -> list:
+    """-> the kernels-line numbers of the two association kernels."""
+    h, w, scale = 680, 1200, 6553.5
+    rows = {k: v.to(device) for k, v in kernel_timing.association_inputs(
+        7, REPLICA_ROWS, h, w, count=REPLICA_ROWS - 40_000).items()}
+    hw = h * w
+    other = [(rows[f"pix_{s}"] != A.INVALID_INDEX) & ~rows[f"support_{s}"]
+             for s in "ab"]
+    pairs = [((A.min_depth_map(hw, rows["pix_a"], rows["pix_b"],
+                               rows["z"]),),
+              (A.min_depth_map_reference(hw, rows["pix_a"], rows["pix_b"],
+                                         rows["z"]),))]
+    args = (hw, rows["pix_a"], rows["pix_b"], rows["support_a"],
+            rows["support_b"], rows["idx"])
+    pairs.append((A.support_maps(*args, rows["z"], scale),
+                  A.support_maps_reference(*args, rows["z"], scale)))
+    args = (hw, rows["pix_a"], rows["pix_b"], *other, rows["idx"])
+    pairs.append(((A.min_index_map(*args),),
+                  (A.min_index_map_reference(*args),)))
+    for (got, want), name in zip(pairs, ("min-depth", "support",
+                                         "min-index")):
+        check(all(bits_equal(g, x) for g, x in zip(got, want)),
+              f"association {name} map differs from its plain scatters")
+    in_view = int(((rows["pix_a"] != A.INVALID_INDEX) |
+                   (rows["pix_b"] != A.INVALID_INDEX)).sum())
+    out = kernel_timing.association_times(rows, hw, scale)
+    for r in out:
+        one = dict(dict.fromkeys(A.launches(), 0), **{r["name"]: 1})
+        check(r["call_launches"] == one, f"association {r['name']}: "
+              f"launches {r['call_launches']} in a call")
+        print(f"[kernel] association {r['name']} 1200x680, {REPLICA_ROWS} "
+              f"seeded rows ({in_view} in view), bit-identical to its plain "
+              f"scatters, 1 launch a call; device {r['device_ms']:.4f} ms "
+              f"(maps' fill included), host-inclusive {r['host_ms']:.4f} "
+              f"ms; plain PyTorch device {r['plain_ms']:.4f} ms, "
+              f"host-inclusive {r['plain_host_ms']:.4f} ms; plain scatters "
+              f"alone over all 2N entries {r['scatter_all_ms']:.4f} ms, "
+              f"over the in-image ones {r['scatter_valid_ms']:.4f} ms; "
+              f"bound {r['bound_ms']:.5f} ms (bytes: {r['bytes']} B), "
+              f"{100.0 * r['bound_ms'] / r['device_ms']:.1f}% of it reached")
+    return [dict(r, max_abs_err=0.0, library_ms=None, bound_by="bytes")
+            for r in out]
+
+
 WIDE_SWEEP = ((8, 32), (8, 40), (12, 32), (12, 40), (16, 32), (16, 40),
               (16, 48), (20, 48), (24, 40), (24, 48))
 
@@ -555,6 +610,7 @@ def run_slice(device, video, cfg, modes=None, taps=None) -> dict:
               f"{blend.MAX_RADIUS} took the wide blending path")
     return dict(pipe=pipe, fused=fused, launches=blend.blend_core.launches,
                 preprocess=preprocess_counts("run_slice"),
+                association=A.launches(),
                 wide_launches=blend.blend_core.wide_launches,
                 wide_kernels=blend.blend_core.wide_kernel_launches,
                 timed=timed, ms_frame=start.elapsed_time(end) / timed,
@@ -574,7 +630,8 @@ def phase_slice(device, video, seq) -> dict:
     dist = seq.surface_distance(alive[:, F.SX:F.SZ + 1])
     print(f"[slice] 640x480, 500k capacity: {fused} frames fused, "
           f"{launches} blend launches, preprocessing launches "
-          f"{run['preprocess']}, surfel count {count}, overflow "
+          f"{run['preprocess']}, association launches "
+          f"{run['association']}, surfel count {count}, overflow "
           f"{int(pipe.state.overflow_count)}, {run['ms_frame']:.3f} ms/frame "
           f"(CUDA events over {run['timed']} frames after {WARMUP_FRAMES} "
           f"warm-up; host wall {run['wall_ms']:.3f} ms/frame), median "
@@ -585,6 +642,9 @@ def phase_slice(device, video, seq) -> dict:
     check(np.isfinite(pack[:, cols]).all(), "NaN/inf in live surfel rows")
     check(launches == fused, f"{launches} kernel launches for {fused} "
           f"fused frames")
+    check(run["association"] == {"min_depth": fused, "support": fused},
+          f"association launches {run['association']} for {fused} fused "
+          f"frames")
     check(float(np.median(dist)) < 0.005, "surfels off the scene surface")
     return dict(launches=launches, fused=fused, taps=taps,
                 preprocess=run["preprocess"], ms_frame=run["ms_frame"],
@@ -874,6 +934,7 @@ def phase_build():
     G.load_library()
     kernel_timing.load_l2_read_library()
     pp.load_library()
+    A.load_library()
     engine.MeshingEngine()
     built = ", ".join(f"csrc/{name}.cu -> {path.name}"
                       for name, path in zip(KERNEL_SOURCES, paths))
@@ -2211,6 +2272,7 @@ def run_phases(device, anchor) -> list:
     """Phases 3-20 and the end of 21; -> the kernels line's entries."""
     blend_times, wide_times = phase_kernel(device)
     preprocess_rows = phase_preprocess(device)
+    association_rows = phase_association(device)
     video, seq = synthetic_rgbd_video(SLICE_FRAMES, 640, 480,
                                       noise_sigma=0.002)
     slice_run = phase_slice(device, video, seq)
@@ -2273,6 +2335,12 @@ def run_phases(device, anchor) -> list:
                  bench_path_launches={tool: counts[k] for tool, counts in
                                       bench_run["preprocess"].items()},
                  chunk_path_launches=chunk_run["preprocess"][k])))
+    for r in association_rows:
+        k = r["name"]
+        kernels.append(kernel_entry(
+            f"association_{k}", "association.cu", None,
+            slice_run["association"][k],
+            slice_run["association"][k] / slice_run["fused"], r))
     return kernels
 
 

@@ -8,12 +8,14 @@ fixed-capacity packed surfel map.
 The port follows the JAX package's default single-device semantics in the
 form its golden oracle states (tests/golden_fusion.py): the per-pixel maps
 are built with order-independent scatter reductions (amin, integer add), so
-they are deterministic; the supporter and conflictor races of the
-reference are resolved by the min-index rule.  integrate_frame runs the
-per-surfel phases over the whole capacity, masked by `surfel_count`,
-which stays on the device: a frame needs no host synchronisation.  With
-an active-surfel budget they run instead over a working set of whole
-tiles (the JAX package's active-set tiling, `_integrate_tiled`).
+they are deterministic (ops/association.py: plain scatters on the CPU,
+csrc/association.cu's atomics on the card); the supporter and conflictor
+races of the reference are resolved by the min-index rule.
+integrate_frame runs the per-surfel phases over the whole capacity,
+masked by `surfel_count`, which stays on the device: a frame needs no
+host synchronisation.  With an active-surfel budget they run instead
+over a working set of whole tiles (the JAX package's active-set tiling,
+`_integrate_tiled`).
 integrate_frame_bucketed runs them over the first n_eff rows only, the
 reference's count-sized launches; the pipeline picks n_eff from a bound
 on the surfel count whenever no active-surfel budget is set
@@ -37,10 +39,10 @@ import torch
 import torch.distributed as dist
 
 from .. import resolve_device
+from . import association
+from .association import INVALID_INDEX, SUM_BITS
 from .blend import blend_core
 from .preprocess import sqrt_f32, to_i32_trunc
-
-INVALID_INDEX = 2 ** 31 - 1
 
 # Constants fixed in the reference (kernels.cu:50-74).
 SURFEL_NORMAL_TO_VIEWING_DIR_THRESHOLD = 0.0
@@ -48,7 +50,6 @@ MAX_OBSERVATION_RADIUS_FACTOR = 1.5          # kernels.cu:58
 MERGE_RADIUS_DIFF_THRESHOLD_SQ = 1.2 ** 2    # kernels.cu:1959-1960
 MERGE_DISTANCE_FACTOR = 0.5 * 0.25 * 0.25    # kernels.cu:1971
 MERGE_COS_NORMAL_THRESHOLD = 0.93969         # 20 deg, kernels.cu:1981
-SUM_BITS = 25   # support count + depth sum share one int32 (see phase 2)
 
 # Pack column indices (same map as surfelmeshing_tpu.ops.fusion).
 PX, PY, PZ = 0, 1, 2          # raw position
@@ -333,19 +334,6 @@ def _shift_flat(img_flat: torch.Tensor, shift: int) -> torch.Tensor:
     if shift > 0:
         return torch.cat([img_flat[shift:], zeros])
     return torch.cat([zeros, img_flat[:shift]])
-
-
-def _pixel_map(hw: int, pix: torch.Tensor, values: torch.Tensor,
-               fill, reduce: str) -> torch.Tensor:
-    """Scatter-reduce `values` into an (hw,) map at `pix`; entries whose
-    pixel is INVALID_INDEX land in a dropped extra slot."""
-    out = torch.full((hw + 1,), fill, dtype=values.dtype, device=values.device)
-    index = torch.where(pix == INVALID_INDEX, hw, pix).to(torch.int64)
-    if reduce == "sum":
-        out.scatter_add_(0, index, values)
-    else:
-        out.scatter_reduce_(0, index, values, reduce, include_self=True)
-    return out[:hw]
 
 
 def _ordered_scatter_add(n: int, index: torch.Tensor,
@@ -740,7 +728,41 @@ def _integrate_body(state, depth, normals_xy, radius_img, color,
     over the surfel axis (`shard`) or the first rows of a map of
     `capacity` rows (integrate_frame_bucketed; only overflow_count reads
     it).  `stages` is called at the JAX package's stage boundaries (its
-    _StageScopes calls)."""
+    _StageScopes calls).
+
+    Phases 1-7 run in _fuse, so their per-row temporaries are freed when
+    it returns, before regularisation's neighbour gathers, which would
+    otherwise hold the step's peak device memory on top of them."""
+    out, sync = _fuse(state, depth, normals_xy, radius_img, color,
+                      global_T_local, local_T_global, frame_index, params,
+                      taps, stages, tiling, shard=shard, capacity=capacity)
+
+    # --- Phase 8: Regularization (kernels.cu:2099-2410) -------------------
+    if stages is not None:
+        stages("regularization")
+    pack, neighbors, nbr_dist = out.pack, out.neighbors, out.nbr_dist
+    if params.regularization_iterations == 0:
+        recent = pack.view(torch.int32)[:, STAMP] >= \
+            frame_index - params.regularization_frame_window_size
+        pack = pack.clone()
+        for s, p in ((SX, PX), (SY, PY), (SZ, PZ)):
+            pack[:, s] = torch.where(recent, pack[:, p], pack[:, s])
+    else:
+        for _ in range(params.regularization_iterations):
+            pack, neighbors, nbr_dist = _regularize(
+                params, pack, neighbors, nbr_dist, frame_index, sync)
+    if stages is not None:
+        stages(None)
+    return dataclasses.replace(out, pack=pack, neighbors=neighbors,
+                               nbr_dist=nbr_dist)
+
+
+def _fuse(state, depth, normals_xy, radius_img, color, global_T_local,
+          local_T_global, frame_index, params, taps, stages,
+          tiling: Optional[_Tiling], *, shard: Optional[_Sharding],
+          capacity: Optional[int]):
+    """Phases 1-7 of _integrate_body (its arguments); -> (the state after
+    creation, the pack sync that global-index gathers read through)."""
     def tap(name, value):
         if taps is not None:
             taps[name] = value
@@ -805,8 +827,7 @@ def _integrate_body(state, depth, normals_xy, radius_img, color,
     # --- Phase 1: RenderMinDepth (kernels.cu:1458-1557) -------------------
     # The same z tensor feeds the min scatter and the `first == z` tests.
     stage("data_association")
-    first_depth = combine(_pixel_map(hw, torch.cat([pix_a, pix_b]),
-                                     torch.cat([z, z]), math.inf, "amin"),
+    first_depth = combine(association.min_depth_map(hw, pix_a, pix_b, z),
                           dist.ReduceOp.MIN)
     tap("first_depth", first_depth)
 
@@ -866,18 +887,10 @@ def _integrate_body(state, depth, normals_xy, radius_img, color,
     # the low 25 bits as fixed point at depth-unit resolution, the count
     # above (the JAX package's documented deviation from the reference's
     # separate f32 sums, kernels.cu:1691-1694).
-    z_units = torch.round(z * params.depth_scaling) \
-        .clamp(0, (1 << 17) - 1).to(torch.int32)
-    sup_pix = torch.cat([torch.where(support_a, pix_a, INVALID_INDEX),
-                         torch.where(support_b, pix_b, INVALID_INDEX)])
-    supporting_surfels = combine(
-        _pixel_map(hw, sup_pix, torch.cat([idx, idx]), INVALID_INDEX,
-                   "amin"), dist.ReduceOp.MIN)
-    packed_ab = torch.cat([
-        torch.where(support_a, z_units + (1 << SUM_BITS), 0),
-        torch.where(support_b, z_units + (1 << SUM_BITS), 0)])
-    packed = combine(_pixel_map(hw, sup_pix, packed_ab, 0, "sum"),
-                     dist.ReduceOp.SUM)
+    supporting_surfels, packed = association.support_maps(
+        hw, pix_a, pix_b, support_a, support_b, idx, z, params.depth_scaling)
+    supporting_surfels = combine(supporting_surfels, dist.ReduceOp.MIN)
+    packed = combine(packed, dist.ReduceOp.SUM)
     support_counts = packed >> SUM_BITS
     support_depth_sums = (packed & ((1 << SUM_BITS) - 1)) \
         .to(torch.float32) * inv_scale
@@ -886,12 +899,9 @@ def _integrate_body(state, depth, normals_xy, radius_img, color,
     if params.exact_conflict_arbitration:
         # The reference's conflictor map, its last-writer race resolved by
         # the min-index rule: one decrementer per pixel.
-        conflicting_surfels = combine(_pixel_map(
-            hw, torch.cat([pix_a, pix_b]),
-            torch.cat([torch.where(conflict_a | m_conflict, idx,
-                                   INVALID_INDEX),
-                       torch.where(conflict_b, idx, INVALID_INDEX)]),
-            INVALID_INDEX, "amin"), dist.ReduceOp.MIN)
+        conflicting_surfels = combine(association.min_index_map(
+            hw, pix_a, pix_b, conflict_a | m_conflict, conflict_b, idx),
+            dist.ReduceOp.MIN)
     tap("supporting_surfels", supporting_surfels)
     tap("support_counts", support_counts)
     tap("support_depth_sums", support_depth_sums)
@@ -1113,24 +1123,10 @@ def _integrate_body(state, depth, normals_xy, radius_img, color,
     tap("neighbors_after_create", neighbors)
     tap("surfel_count_after_create", surfel_count)
 
-    # --- Phase 8: Regularization (kernels.cu:2099-2410) -------------------
-    stage("regularization")
-    if params.regularization_iterations == 0:
-        recent = pack.view(torch.int32)[:, STAMP] >= \
-            frame_index - params.regularization_frame_window_size
-        pack = pack.clone()
-        for s, p in ((SX, PX), (SY, PY), (SZ, PZ)):
-            pack[:, s] = torch.where(recent, pack[:, p], pack[:, s])
-    else:
-        for _ in range(params.regularization_iterations):
-            pack, neighbors, nbr_dist = _regularize(
-                params, pack, neighbors, nbr_dist, frame_index, sync)
-    stage(None)
-
     return dataclasses.replace(
         state, pack=pack, neighbors=neighbors, nbr_dist=nbr_dist,
         surfel_count=surfel_count, merge_count=merge_count,
-        overflow_count=overflow_count, deferred_count=deferred_count)
+        overflow_count=overflow_count, deferred_count=deferred_count), sync
 
 
 def _pixel_coords(hw: int, w: int, device):

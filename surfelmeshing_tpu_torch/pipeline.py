@@ -100,7 +100,7 @@ from .chunk import (ChunkEntry, ChunkStep, clone_state, pose_pack,
 from .config import SurfelMeshingConfig
 from .io.mesh_io import write_ply
 from .io.tum import RGBDVideo
-from .ops import blend, cuda_build
+from .ops import association, blend, cuda_build
 from .ops import preprocess as pp
 from .ops.fusion import (FusionParams, StageTimer, SurfelState,
                          create_surfel_state, export_vertices,
@@ -312,8 +312,8 @@ class ReconstructionPipeline:
 
     def trace_counters(self) -> dict:
         """The counters the tracer reports (utils/timing.py), read where
-        they live: this pipeline's, and the process's blending and
-        preprocessing kernel launches and kernel builds.  creations.made
+        they live: this pipeline's, and the process's blending,
+        preprocessing and association kernel launches and kernel builds.  creations.made
         and creations.deferred are as far as the count readbacks have
         confirmed them (no wait: they lag the dispatches by the readbacks
         still in flight; a fixed active budget starts none)."""
@@ -326,6 +326,7 @@ class ReconstructionPipeline:
                 "snapshot_rows_shipped": self.snapshot_rows_shipped,
                 "blend_launches": blend.blend_core.launches,
                 "preprocess_launches": sum(pp.launches().values()),
+                "association_launches": sum(association.launches().values()),
                 "kernel_builds": cuda_build.builds}
 
     def _log_device_memory(self) -> None:

@@ -19,18 +19,27 @@ l2_read_bytes_per_s: the card's L2-to-SM read rate, from csrc/l2_read.cu
 preprocess_times: both times of each csrc/preprocess.cu kernel and of its
   plain pass (ops/preprocess.py) on one frame, beside the pass's bound;
   preprocess_inputs makes a seeded frame for it (and for the card tests).
+
+association_times: both times of each csrc/association.cu launch (the
+  min-depth map; the support maps) and of its plain scatters
+  (ops/association.py), beside its bound, and the plain scatters alone on
+  prebuilt int64 indices with and without the entries of invalid pixels;
+  association_inputs makes a seeded map's rows for it (and for the card
+  tests).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops import association as assoc
 from ..ops import cuda_build
 from ..ops import preprocess as pp
 
@@ -264,3 +273,158 @@ def preprocess_times(depth, others, transforms, kw: dict,
             plain_host_ms=host_ms(plain, device, 3),
             **preprocess_bound(name, args, kw)))
     return rows
+
+
+# Replica's room as NICE-SLAM renders it (benchmark/configs/
+# replica1200_20m.json): metres, and the camera's focal length in pixels.
+ROOM = (6.0, 4.4, 2.7)
+REPLICA_FOCAL = 600.0
+
+
+def association_inputs(seed: int, n: int, height: int, width: int,
+                       focal: float = REPLICA_FOCAL, count: int = None,
+                       room=ROOM) -> dict:
+    """A seeded map's association rows, as _integrate_body hands them to
+    ops/association.py: n surfels on the walls, floor and ceiling of a
+    room, in creation order (grouped by wall and patch), seen by a
+    camera with a pixel-corner principal point at the image centre,
+    standing near the room's centre at a seeded heading and tilt.  Rows
+    at or past `count` (n by default) are unused; rows behind the camera
+    or off the image project nowhere.  -> dict of CPU tensors: pix_a and
+    pix_b (int32 flat pixels or INVALID_INDEX; pix_b the side pixel toward
+    which the surfel leans, as fusion._side_pixel), z (f32 camera depth),
+    support_a and support_b (bool: ~85% of the sides with a pixel) and idx
+    (int32 row index)."""
+    rng = np.random.default_rng(seed)
+    count = n if count is None else count
+    sx, sy, sz = room
+    areas = np.array([sy * sz, sy * sz, sx * sz, sx * sz, sx * sy, sx * sy])
+    face = rng.choice(6, size=n, p=areas / areas.sum())
+    a, b = rng.random(n), rng.random(n)
+    pts = np.empty((n, 3))
+    axis = face // 2                        # the wall's normal axis
+    for k, (i, j) in enumerate(((1, 2), (0, 2), (0, 1))):
+        sel = axis == k
+        pts[sel, k] = np.where(face[sel] % 2 == 0, 0.0, room[k])
+        pts[sel, i] = a[sel] * room[i]
+        pts[sel, j] = b[sel] * room[j]
+    order = np.lexsort((np.floor(a * room[0] / 0.25),
+                        np.floor(b * room[2] / 0.25), face))
+    pts = pts[order]
+    centre = np.array(room) / 2 + rng.normal(0, 0.2, 3)
+    yaw, tilt = rng.uniform(0, 2 * np.pi), rng.uniform(-0.2, 0.2)
+    fwd = np.array([np.cos(yaw) * np.cos(tilt), np.sin(yaw) * np.cos(tilt),
+                    np.sin(tilt)])
+    right = np.array([np.sin(yaw), -np.cos(yaw), 0.0])
+    down = np.cross(fwd, right)
+    rel = pts - centre
+    x, y, z = (rel @ axis_ for axis_ in (right, down, fwd))
+    x, y, z = (torch.from_numpy(v.astype(np.float32)) for v in (x, y, z))
+    safe = torch.where(z > 0, z, 1.0)
+    u = focal * (x / safe) + width / 2
+    v = focal * (y / safe) + height / 2
+    px, py = pp.to_i32_trunc(u), pp.to_i32_trunc(v)
+    live = torch.arange(n) < count
+    on_a = live & (z > 0) & (u >= 0) & (v >= 0) & (px < width) & \
+        (py < height)
+    xf, yf = u - px.to(torch.float32), v - py.to(torch.float32)
+    bl, near = xf < yf, xf < 1.0 - yf
+    left, bottom, top, right_ = bl & near, bl & ~near, ~bl & near, \
+        ~bl & ~near
+    sxp = torch.where(left, px - 1, torch.where(right_, px + 1, px))
+    syp = torch.where(top, py - 1, torch.where(bottom, py + 1, py))
+    side_ok = torch.where(left, px > 1, torch.where(
+        right_, px < width - 1, torch.where(top, py > 0, py < height - 1)))
+    on_b = on_a & side_ok
+    pix_a = torch.where(on_a, py * width + px, assoc.INVALID_INDEX)
+    pix_b = torch.where(on_b, syp * width + sxp, assoc.INVALID_INDEX)
+    keep = torch.from_numpy(rng.random((2, n)) < 0.85)
+    return dict(pix_a=pix_a, pix_b=pix_b, z=z,
+                support_a=on_a & keep[0], support_b=on_b & keep[1],
+                idx=torch.arange(n, dtype=torch.int32))
+
+
+def association_bound(rows: dict, hw: int) -> dict:
+    """The least time the card could take for each launch: what these
+    rows need read once and each map written once at the HBM rate.
+    min_depth: both pixels of every row, z of each row with an in-image
+    side; support: both flags of every row, both pixels, the index and z
+    of each supporting row; maps 4 B a pixel each."""
+    valid = ((rows["pix_a"] != assoc.INVALID_INDEX) |
+             (rows["pix_b"] != assoc.INVALID_INDEX)).sum()
+    supporting = (rows["support_a"] | rows["support_b"]).sum()
+    n = rows["idx"].numel()
+    nbytes = {"min_depth": 8 * n + 4 * int(valid) + 4 * hw,
+              "support": 2 * n + 16 * int(supporting) + 8 * hw}
+    return {k: dict(bytes=b, bound_ms=1000.0 * b / HBM_BYTES_PER_S)
+            for k, b in nbytes.items()}
+
+
+def association_times(rows: dict, hw: int, depth_scaling: float,
+                      repeats: int = REPEATS) -> list:
+    """For each launch on the rows (CUDA tensors): its wrapper's device and
+    host-inclusive ms (the maps' fill included) and the launches of each
+    association kernel in one call; its plain version's device and
+    host-inclusive ms (`plain_ms`, `plain_host_ms`: ops/association.py's
+    *_reference, the cat, where and int64 index over 2N entries
+    included); and its plain scatters alone on
+    prebuilt int64 indices, over all 2N entries, invalid pixels sent to
+    the dropped slot (`scatter_all_ms`), and over the entries of in-image
+    pixels only (`scatter_valid_ms`): their gap is the dropped slot's
+    cost.  Beside each, its bound."""
+    device = rows["z"].device
+    r = rows
+    bounds = association_bound(rows, hw)
+    invalid = assoc.INVALID_INDEX
+    sup_pix = torch.cat([torch.where(r["support_a"], r["pix_a"], invalid),
+                         torch.where(r["support_b"], r["pix_b"], invalid)])
+    unit = assoc.depth_units(r["z"], depth_scaling) + (1 << assoc.SUM_BITS)
+    scatters = {
+        "min_depth": [(torch.cat([r["pix_a"], r["pix_b"]]),
+                       torch.cat([r["z"], r["z"]]), math.inf, "amin")],
+        "support": [(sup_pix, torch.cat([r["idx"], r["idx"]]), invalid,
+                     "amin"),
+                    (sup_pix, torch.cat([torch.where(r["support_a"], unit, 0),
+                                         torch.where(r["support_b"], unit,
+                                                     0)]), 0, "sum")]}
+    calls = {
+        "min_depth": (assoc.min_depth_map, assoc.min_depth_map_reference,
+                      (hw, r["pix_a"], r["pix_b"], r["z"])),
+        "support": (assoc.support_maps, assoc.support_maps_reference,
+                    (hw, r["pix_a"], r["pix_b"], r["support_a"],
+                     r["support_b"], r["idx"], r["z"], depth_scaling))}
+    out = []
+    for name, (kernel_fn, plain_fn, args) in calls.items():
+        kernel = functools.partial(kernel_fn, *args)
+        plain = functools.partial(plain_fn, *args)
+
+        def scatter_step(keep_invalid, entries=scatters[name]):
+            prepared = []
+            for pix, values, fill, reduce in entries:
+                keep = slice(None) if keep_invalid else pix != invalid
+                index = torch.where(pix == invalid, hw, pix)[keep].long()
+                prepared.append((index, values[keep], fill, reduce))
+
+            def step():
+                for index, values, fill, reduce in prepared:
+                    m = torch.full((hw + 1,), fill, dtype=values.dtype,
+                                   device=device)
+                    if reduce == "sum":
+                        m.scatter_add_(0, index, values)
+                    else:
+                        m.scatter_reduce_(0, index, values, reduce)
+            return step
+
+        before = assoc.launches()
+        kernel()
+        out.append(dict(
+            name=name, call_launches={k: v - before[k]
+                                      for k, v in assoc.launches().items()},
+            device_ms=device_ms(kernel, repeats),
+            host_ms=host_ms(kernel, device, repeats),
+            plain_ms=device_ms(plain, 3),
+            plain_host_ms=host_ms(plain, device, 3),
+            scatter_all_ms=device_ms(scatter_step(True), 3),
+            scatter_valid_ms=device_ms(scatter_step(False), 3),
+            **bounds[name]))
+    return out

@@ -6,7 +6,8 @@ graph's counts added at each replay."""
 
 import pytest
 
-from surfelmeshing_tpu_torch.ops import blend, gather, launch_counts
+from surfelmeshing_tpu_torch.ops import association, blend, gather, \
+    launch_counts
 from surfelmeshing_tpu_torch.ops import preprocess as pp
 
 
@@ -22,7 +23,8 @@ def test_every_kernel_wrapper_is_registered():
     assert set(launch_counts.snapshot()) == {
         "blend_core", "blend_wide", "blend_wide_kernels",
         "gather_rows", "gather_rows3", "gather_lane",
-        *(f"preprocess_{k}" for k in pp.KERNELS)}
+        *(f"preprocess_{k}" for k in pp.KERNELS),
+        *(f"association_{k}" for k in association.KERNELS)}
     assert list(pp.KERNELS) == ["bilateral", "outlier", "erode", "normals",
                                 "radii"]
 

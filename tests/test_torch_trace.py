@@ -216,7 +216,7 @@ def test_every_fused_frame_has_one_frame_span(runs, chunk):
         "snapshots": len(SNAPSHOT_AT),
         "snapshot_rows_shipped": pipe.snapshot_rows_shipped,
         "blend_launches": 0, "preprocess_launches": 0,
-        "kernel_builds": 0}]
+        "association_launches": 0, "kernel_builds": 0}]
 
 
 @pytest.mark.parametrize("chunk", [1, 4])
