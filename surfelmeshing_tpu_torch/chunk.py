@@ -3,12 +3,15 @@ of deferred frames, the counterpart of the JAX pipeline's
 _build_chunk_step (one jitted lax.scan whose body is the per-frame
 preprocess + fusion step).
 
-ChunkStep.run copies the frames' inputs into static buffers (device to
-device from prefetch_inputs' staged tensors, host to device through
-pinned memory otherwise) and runs the chunk body: for each frame the
-pyramid downscale if set, preprocess_frame and integrate_frame_bucketed,
-its results written into the map's own tensors (the 0-d counters
-included), so the map's tensors never move.
+FrameStep is the per-frame step of both dispatch paths: the pyramid
+downscale of the depth window if set, preprocess_frame, then
+integrate_frame_bucketed.  Per-frame dispatch calls its two halves on a
+frame's tensors with its bucket pick between them; ChunkStep.run copies
+the frames' inputs into static buffers (device to device from
+prefetch_inputs' staged tensors, host to device through pinned memory
+otherwise) and runs the chunk body: FrameStep for each frame, its
+results written into the map's own tensors (the 0-d counters included),
+so the map's tensors never move.
 
 On the CPU the body is called directly; the tests exercise the code the
 card captures.  On a CUDA device each (frames, n_eff, FusionParams) key
@@ -21,10 +24,9 @@ nor the capture advances the map.  Each graph draws on a memory pool of
 its own (nothing allocated in a capture outlives it), freed with the
 graph.  A map growing through many buckets would otherwise pile up one
 graph and its pool a bucket: before a capture, the graphs whose n_eff
-lies below `least_n_eff` (the smallest bucket the dispatch policy can
-still pick, set by the pipeline) are dropped and their memory released.
-A capture or replay failure raises; nothing falls back to eager
-dispatch.
+lies below the smallest bucket the dispatch policy can still pick
+(`policy`.least_bucket) are dropped and their memory released.  A
+capture or replay failure raises; nothing falls back to eager dispatch.
 
 The one mode that is not captured: symmetric_regularization=False reads
 the longest scatter run on the host (fusion._ordered_scatter_add), so a
@@ -45,6 +47,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -111,28 +114,63 @@ def clone_state(state: SurfelState) -> SurfelState:
                           for f in STATE_FIELDS})
 
 
+class FrameStep:
+    """The frame step of one pipeline, in two halves (per-frame dispatch
+    picks its bucket between them); pp_kwargs are preprocess_frame's."""
+
+    def __init__(self, config, pp_kwargs: dict):
+        self.k = config.outlier_filtering_frame_count
+        self.level = config.pyramid_level
+        self.pp_kwargs = pp_kwargs
+
+    def preprocess(self, depth: torch.Tensor, others, pack: torch.Tensor,
+                   passes: Optional[StageTimer] = None,
+                   on_stage=None) -> tuple:
+        """A reference depth and the K others of its window (a list or a
+        tensor) preprocessed: -> (depth, normals, radius, t_gl, t_lg, 0-d
+        int32 frame index).  `passes` is marked where the first pass
+        starts."""
+        transforms, t_gl, t_lg, frame = split_pose_pack(pack, self.k)
+        if self.level > 0:
+            factor = 1 << self.level
+            depth = pp.downscale_median_excluding(depth, factor)
+            others = [pp.downscale_median_excluding(o, factor)
+                      for o in others]
+        if not isinstance(others, torch.Tensor):
+            others = torch.stack(others)
+        if passes is not None:
+            passes(pp.PASSES[0])
+        d, nrm, rad = pp.preprocess_frame(depth, others, transforms,
+                                          **self.pp_kwargs, on_stage=on_stage)
+        return d, nrm, rad, t_gl, t_lg, frame
+
+    def fuse(self, state: SurfelState, pre: tuple, color: torch.Tensor,
+             frame, params: FusionParams, n_eff: int,
+             taps: Optional[dict] = None,
+             stages: Optional[StageTimer] = None) -> SurfelState:
+        """Fuse preprocess's first five results into `state`, in place."""
+        return integrate_frame_bucketed(state, *pre[:3], color, *pre[3:],
+                                        frame, params, n_eff, taps, stages)
+
+
 class ChunkStep:
     """The chunk step of one pipeline: static input buffers, the chunk
-    body and, on a CUDA device, its graphs.
+    body (`step` for each frame) and, on a CUDA device, its graphs.
 
     captures, replays and capture_s count the graphs captured (warm-up
     included in the seconds), the replays and the host seconds they
     took; keys lists the captured (frames, n_eff, active_surfel_budget)
-    in capture order; retired counts the graphs dropped as unreachable.
-    least_n_eff is the smallest n_eff the caller's dispatch can still
-    pick (0: any)."""
+    in capture order; retired counts the graphs dropped as unreachable."""
 
-    def __init__(self, config, device, pp_kwargs: dict):
+    def __init__(self, config, device, step: FrameStep, policy):
         self.device = device
-        self.k = config.outlier_filtering_frame_count
-        self.level = config.pyramid_level
         self.capacity = config.frame_chunk
-        self.pp_kwargs = pp_kwargs
+        self.step = step
+        self.policy = policy
         self._buffers = None      # (depth, color, poses), at first run
         self._graphs = {}         # key -> (CUDAGraph, launch counts)
         self._bound = None        # the map the graphs write
         self._eager_logged = False
-        self.least_n_eff = 0
         self.retired = 0
         self.captures = 0
         self.replays = 0
@@ -244,17 +282,9 @@ class ChunkStep:
         into `state`'s tensors: the per-frame step of the pipeline."""
         depth, color, poses = self._buffers
         for i in range(size):
-            ref, others = depth[i, 0], depth[i, 1:]
-            if self.level > 0:
-                factor = 1 << self.level
-                ref = pp.downscale_median_excluding(ref, factor)
-                others = torch.stack([pp.downscale_median_excluding(o, factor)
-                                      for o in others])
-            transforms, t_gl, t_lg, frame = split_pose_pack(poses[i], self.k)
-            d, nrm, rad = pp.preprocess_frame(ref, others, transforms,
-                                              **self.pp_kwargs)
-            out = integrate_frame_bucketed(state, d, nrm, rad, color[i],
-                                           t_gl, t_lg, frame, params, n_eff)
+            *pre, frame = self.step.preprocess(depth[i, 0], depth[i, 1:],
+                                               poses[i])
+            out = self.step.fuse(state, pre, color[i], frame, params, n_eff)
             for name in COUNTERS:
                 dst, src = getattr(state, name), getattr(out, name)
                 if dst is not src:
@@ -263,10 +293,11 @@ class ChunkStep:
     # -- CUDA graphs ----------------------------------------------------
 
     def _retire_unreachable(self) -> None:
-        """Drop the graphs whose n_eff lies below least_n_eff and release
-        the cached memory of their pools (a capture synchronises the
-        device anyway)."""
-        old = [k for k in self._graphs if k[1] < self.least_n_eff]
+        """Drop the graphs whose n_eff lies below the policy's
+        least_bucket() and release the cached memory of their pools (a
+        capture synchronises the device anyway)."""
+        least = self.policy.least_bucket()
+        old = [k for k in self._graphs if k[1] < least]
         for k in old:
             del self._graphs[k]
         if old:

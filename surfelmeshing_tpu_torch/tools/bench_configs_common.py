@@ -9,10 +9,10 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..dispatch import start_readback
 from ..io.synthetic import SyntheticRGBDSequence
 from ..ops import preprocess as pp
 from ..ops.fusion import FusionParams, SurfelState, integrate_frame
-from ..pipeline import start_readback
 
 
 def parse_size(s: str) -> int:
@@ -106,9 +106,10 @@ class AutoBudgetPolicy:
     """The pipeline's --active_surfel_budget -1 policy for standalone
     tools: lagged (surfel_count, active_tile_count) readbacks size the
     next frame's tiling budget to 2x the visible-set tile demand on a
-    power-of-2 tile ladder (pipeline._auto_budget).  A readback is a
-    non-blocking copy into pinned memory, read once its CUDA event has
-    fired (pipeline.start_readback); on the CPU it is read at once."""
+    power-of-2 tile ladder (dispatch.DispatchPolicy.auto_budget).  A
+    readback is a non-blocking copy into pinned memory, read once its CUDA
+    event has fired (dispatch.start_readback); on the CPU it is read at
+    once."""
 
     def __init__(self, cap, tile, max_creations, width, height):
         self.cap, self.tile = cap, tile

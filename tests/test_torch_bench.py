@@ -107,8 +107,9 @@ def test_restore_replays_bit_for_bit():
         pipe.process_frame(video, i)
     pipe.snapshot_for_meshing(4)
     snap = pipe.snapshot_dispatch_state()
-    marks = (pipe._confirmed_count, pipe._lagged_active_tiles,
-             list(pipe._growth_window), pipe._last_snap_frame,
+    policy = pipe.policy
+    marks = (policy.confirmed_count, policy.lagged_active_tiles,
+             list(policy.growth_window), pipe._last_snap_frame,
              pipe.snapshot_rows_shipped)
     runs = []
     for _ in range(3):
@@ -117,12 +118,12 @@ def test_restore_replays_bit_for_bit():
         pipe.snapshot_for_meshing(8)
         pipe.drain()
         runs.append((pipe.state,
-                     pipe._confirmed_count, pipe.snapshot_rows_shipped))
+                     policy.confirmed_count, pipe.snapshot_rows_shipped))
         pipe.restore_dispatch_state(snap)
-        assert (pipe._confirmed_count, pipe._lagged_active_tiles,
-                pipe._growth_window, pipe._last_snap_frame,
+        assert (policy.confirmed_count, policy.lagged_active_tiles,
+                policy.growth_window, pipe._last_snap_frame,
                 pipe.snapshot_rows_shipped) == marks
-        assert pipe._unconfirmed_frames == 0 and not pipe._pending_counts
+        assert policy.unconfirmed_frames == 0 and not policy.readbacks
     first = runs[0]
     assert int(first[0].surfel_count) > int(snap[0].surfel_count)
     for state, confirmed, rows in runs[1:]:
@@ -134,10 +135,11 @@ def test_drain_consumes_every_readback():
     pipe, video = pipeline(-1)
     for i in range(6):
         pipe.process_frame(video, i)
-    assert pipe._pending_counts and pipe._unconfirmed_frames > 0
+    policy = pipe.policy
+    assert policy.readbacks and policy.unconfirmed_frames > 0
     pipe.drain()
-    assert not pipe._pending_counts and pipe._unconfirmed_frames == 0
-    assert pipe._confirmed_count == pipe.surfel_count()
+    assert not policy.readbacks and policy.unconfirmed_frames == 0
+    assert policy.confirmed_count == pipe.surfel_count()
 
 
 def jax_tool():

@@ -16,8 +16,8 @@ capacity 8192.
   the capacity) bit for bit, and its picks are the JAX pipeline's
   policy's on the same readbacks (max_inflight_dispatches=1, so every
   pick waits for the previous frame's count);
-- _count_bound and shape_bucket_for equal the JAX pipeline's on the same
-  bookkeeping;
+- the policy's count_bound and shape_bucket_for equal the JAX pipeline's
+  on the same bookkeeping;
 - assigning `state` (a resume) seeds the count bound, where the JAX
   pipeline keeps 0 (ROADMAP queue 3 #9);
 - the bucketed step consumes its input state, and the dispatch-state
@@ -213,11 +213,13 @@ def test_bucket_policy_matches_jax(confirmed, in_flight, growth, factor,
     camera = default_camera(640, 480)
     pipes = (ReconstructionPipeline(cfg, camera, "cpu"),
              JaxPipeline(cfg, camera))
-    for p in pipes:
-        p._confirmed_count, p._unconfirmed_frames = confirmed, in_flight
-        p._growth_window = list(growth)
-    port, ref = ([p._count_bound(1), p.shape_bucket_for(p._count_bound(1))]
-                 for p in pipes)
+    policy, ref = pipes[0].policy, pipes[1]
+    policy.confirmed_count, policy.unconfirmed_frames = confirmed, in_flight
+    ref._confirmed_count, ref._unconfirmed_frames = confirmed, in_flight
+    policy.growth_window, ref._growth_window = list(growth), list(growth)
+    port = [policy.count_bound(1),
+            pipes[0].shape_bucket_for(policy.count_bound(1))]
+    ref = [ref._count_bound(1), ref.shape_bucket_for(ref._count_bound(1))]
     assert port == ref
     assert port[1] % step == 0 or port[1] == 180_000
     assert port[1] >= min(port[0], 180_000)
@@ -246,7 +248,7 @@ def test_resume_seeds_the_count_bound():
         video, _ = synthetic_rgbd_video(10, W, H, noise_sigma=0.002)
         pipe = ReconstructionPipeline(run_cfg, video.depth_camera, "cpu")
         pipe.state = TF.state_from_numpy(device="cpu", **saved)
-        assert pipe._confirmed_count == count
+        assert pipe.policy.confirmed_count == count
         for i in range(5, video.frame_count):
             pipe.process_frame(video, i)
         runs.append(pipe)

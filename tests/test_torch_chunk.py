@@ -192,17 +192,20 @@ def test_growth_sample_per_frame_matches_jax():
                     adaptive_creation_bound=2.0)
     pipes = (ReconstructionPipeline(cfg, default_camera(W, H), "cpu"),
              JaxPipeline(cfg, default_camera(W, H)))
+    policy, ref = pipes[0].policy, pipes[1]
     for count, frames in ((1000, 3), (1905, 2)):
-        port, ref = pipes
-        port._pending_counts.append(      # count, tiles, deferred
+        policy.readbacks.append(          # count, tiles, deferred
             (torch.tensor([count, 0, 0], dtype=torch.int32), None, frames))
         ref._pending_counts.append((jnp.array([count, 0], jnp.int32),
                                     frames))
-        for p in pipes:
-            p._unconfirmed_frames += frames
-            p._drain_count_readbacks(0)
-    got, want = ([p._growth_window, p._confirmed_count,
-                  p._unconfirmed_frames, p._count_bound(4)] for p in pipes)
+        policy.unconfirmed_frames += frames
+        ref._unconfirmed_frames += frames
+        policy.drain(0)
+        ref._drain_count_readbacks(0)
+    got = [policy.growth_window, policy.confirmed_count,
+           policy.unconfirmed_frames, policy.count_bound(4)]
+    want = [ref._growth_window, ref._confirmed_count,
+            ref._unconfirmed_frames, ref._count_bound(4)]
     assert got == want == [[334, 453], 1905, 0, 1905 + 4 * 512]
 
 
@@ -293,12 +296,13 @@ def test_chunk_auto_budget_charges_its_frames():
     camera = default_camera(640, 480)
     pipes = (ReconstructionPipeline(cfg, camera, "cpu"),
              JaxPipeline(cfg, camera))
-    for p in pipes:
-        p._confirmed_count, p._unconfirmed_frames = 200_000, 4
-        p._lagged_active_tiles = 20
     port, ref = pipes
-    assert port._auto_budget(1) == ref._auto_budget() == 64 * 4096
-    assert port._auto_budget(4) == 128 * 4096      # 40 + 8 * 8 tiles
+    policy, rows = port.policy, port.state.pack.shape[0]
+    policy.confirmed_count, policy.unconfirmed_frames = 200_000, 4
+    ref._confirmed_count, ref._unconfirmed_frames = 200_000, 4
+    policy.lagged_active_tiles = ref._lagged_active_tiles = 20
+    assert policy.auto_budget(rows, 1) == ref._auto_budget() == 64 * 4096
+    assert policy.auto_budget(rows, 4) == 128 * 4096   # 40 + 8 * 8 tiles
 
 
 def test_auto_budget_chunked_matches_per_frame():

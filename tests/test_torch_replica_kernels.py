@@ -130,9 +130,9 @@ def first_frame():
         inputs.append(args[:7])
         return fuse(state, *args)
 
-    import surfelmeshing_tpu_torch.pipeline as PL
+    import surfelmeshing_tpu_torch.chunk as CH
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(PL, "integrate_frame_bucketed", record)
+        mp.setattr(CH, "integrate_frame_bucketed", record)
         pipe.process_frame(video, 1)
     params = pipe.fusion_params
     flagged = int(pipe.state.surfel_count)
@@ -196,30 +196,34 @@ def test_trace_counters_read_the_confirmed_creations(cpu_runs, chunk):
 
 
 def test_least_n_eff_follows_the_confirmed_count(cpu_runs):
-    """The chunk step's floor is the bucket of the count confirmed at the
-    last flush (the drain confirmed more since), which no later pick goes
-    below."""
+    """The chunk step's floor (the policy's least_bucket) is the bucket of
+    the confirmed count, which no pick goes below."""
     pipe = cpu_runs[4]
-    assert 0 < pipe._chunk.least_n_eff <= \
-        pipe.shape_bucket_for(pipe._confirmed_count)
-    assert pipe._chunk.least_n_eff % pipe.config.shape_bucket_step == 0
+    least = pipe.policy.least_bucket()
+    assert 0 < least <= pipe.shape_bucket_for(pipe.policy.confirmed_count)
+    assert least % pipe.config.shape_bucket_step == 0
     picks = [n for _, n in pipe.bucket_pick_log]
-    assert picks == sorted(picks) and picks[-1] >= pipe._chunk.least_n_eff
+    assert picks == sorted(picks) and picks[-1] >= least
 
 
 def test_unreachable_graphs_are_retired(monkeypatch):
-    """Before a capture, graphs below least_n_eff are dropped and the
-    cache is emptied once; none is dropped while all are reachable."""
+    """Before a capture, graphs below the policy's least_bucket are
+    dropped and the cache is emptied once; none is dropped while all are
+    reachable."""
     from surfelmeshing_tpu_torch import chunk as CH
+    from surfelmeshing_tpu_torch.dispatch import DispatchPolicy
     emptied = []
     monkeypatch.setattr(torch.cuda, "empty_cache",
                         lambda: emptied.append(1))
-    step = CH.ChunkStep(replica_config(frame_chunk=4), "cpu", {})
-    step._graphs = {(4, n, None): ("graph", {}) for n in (4096, 8192, 12288)}
-    step.least_n_eff = 4096
+    cfg = replica_config(frame_chunk=4, shape_bucket_step=4096)
+    policy = DispatchPolicy(cfg, None, replica_camera())
+    step = CH.ChunkStep(cfg, "cpu", None, policy)
+    step._graphs.update({(4, n, None): ("graph", {})
+                         for n in (4096, 8192, 12288)})
+    policy.confirmed_count = 4096
     step._retire_unreachable()
     assert len(step._graphs) == 3 and step.retired == 0 and not emptied
-    step.least_n_eff = 12288
+    policy.confirmed_count = 12288
     step._retire_unreachable()
     assert list(step._graphs) == [(4, 12288, None)]
     assert step.retired == 2 and emptied == [1]
@@ -363,17 +367,26 @@ def test_graph_replayed_chunks_keep_the_deferred_count(cuda_device):
     frame_chunk 4 replays CUDA graphs; both leave the same map and
     deferred total.  The map grows through buckets, and the graphs of the
     buckets left behind are retired."""
+    from surfelmeshing_tpu_torch.dispatch import DispatchPolicy
     video = replica_video(18)
-    runs = {}
+    runs, floors = {}, []
+    least = DispatchPolicy.least_bucket
+
+    def record(policy):
+        floors.append(least(policy))
+        return floors[-1]
+
     for chunk in (1, 4):
         cfg = replica_config(max_surfel_count=2_000_000, frame_chunk=chunk)
-        runs[chunk] = run_pipeline(cfg, video, cuda_device)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(DispatchPolicy, "least_bucket", record)
+            runs[chunk] = run_pipeline(cfg, video, cuda_device)
     one, four = runs[1], runs[4]
     assert four.graph_captures >= 3 and four.graph_replays == 4
     assert four._chunk.retired >= 1
     assert len(four._chunk._graphs) == four.graph_captures - \
         four._chunk.retired
-    assert all(k[1] >= four._chunk.least_n_eff for k in four._chunk._graphs)
+    assert all(k[1] >= floors[-1] for k in four._chunk._graphs)
     assert_same_map(one.state, four.state)
     assert int(one.state.surfel_count) == 16 * 2 ** 15
     assert int(one.state.deferred_count) > 16 * 2 ** 15

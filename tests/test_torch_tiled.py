@@ -182,18 +182,23 @@ def test_auto_budget_matches_full_bitexact():
     (990_000, 0, 200, [], 0.0)])             # capped at the capacity
 def test_auto_budget_policy_matches_jax(confirmed, in_flight, tiles, growth,
                                         factor):
-    """_auto_budget and _count_bound of the two pipelines on the same
-    readback state (640x480, 1M capacity rounded to 4096-row tiles)."""
+    """The auto budget of the port's policy and of the JAX pipeline on the
+    same readback state (640x480, 1M capacity rounded to 4096-row
+    tiles)."""
     cfg = SurfelMeshingConfig(max_surfel_count=1_000_000,
                               active_surfel_budget=-1,
                               adaptive_creation_bound=factor)
     camera = default_camera(640, 480)
     pipes = (ReconstructionPipeline(cfg, camera, "cpu"),
              JaxPipeline(cfg, camera))
-    for p in pipes:
-        p._confirmed_count, p._unconfirmed_frames = confirmed, in_flight
-        p._lagged_active_tiles, p._growth_window = tiles, list(growth)
-    budgets = [p._auto_budget() for p in pipes]
+    port, ref = pipes
+    policy = port.policy
+    policy.confirmed_count, policy.unconfirmed_frames = confirmed, in_flight
+    ref._confirmed_count, ref._unconfirmed_frames = confirmed, in_flight
+    policy.lagged_active_tiles, policy.growth_window = tiles, list(growth)
+    ref._lagged_active_tiles, ref._growth_window = tiles, list(growth)
+    budgets = [policy.auto_budget(port.state.pack.shape[0]),
+               ref._auto_budget()]
     assert budgets[0] == budgets[1]
     assert budgets[0] % 4096 == 0 and budgets[0] <= 1_003_520
 
