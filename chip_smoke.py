@@ -6,8 +6,8 @@ Phases, each printing one or more lines:
   1. device: requires CUDA (exits non-zero otherwise), prints the card and
      its power limit, turns TF32 off;
   2. build: compiles csrc/blend.cu, blend_wide.cu (both with the shared
-     header blend_common.cuh), gather.cu, l2_read.cu, preprocess.cu and
-     association.cu (one nvcc each)
+     header blend_common.cuh), gather.cu, l2_read.cu, preprocess.cu,
+     association.cu and integration.cu (one nvcc each)
      and the native mesher (g++), all started together;
   3. kernel: the one-launch blending kernel bit for bit against its plain
      PyTorch version on seeded maps at 640x480 with radii 1, 2, 3, 6, 12
@@ -37,11 +37,17 @@ Phases, each printing one or more lines:
      device, host-inclusive and plain times beside their bounds, with the
      plain scatters alone over all entries and over the in-image ones
      (tools/kernel_timing.py::association_times);
+     integration: csrc/integration.cu's kernel bit for bit against its
+     plain version on seeded 7.5M-row maps at 1200x680 and 640x480 with
+     exact_conflict_arbitration off and on, every kind of row phase 5
+     meets among them, one launch a call, and its device, host-inclusive
+     and plain times beside its bound at both shapes
+     (tools/kernel_timing.py::integration_times);
   4. slice: ReconstructionPipeline at 640x480 with 500k surfel capacity and
      default settings over the 24-frame synthetic video, every frame with a
      full outlier window fused; launch counts, zeroed just before, prove
-     the kernels ran: one blending launch and one of each preprocessing
-     and association kernel a fused frame;
+     the kernels ran: one blending launch and one of each preprocessing,
+     association and integration kernel a fused frame;
   5. kernel on the slice's own blending inputs (captured through the taps
      on the last warm-up frame, the map holding surfels by then), bit for
      bit, and its device time on them; the same for the wide path at
@@ -211,6 +217,7 @@ from surfelmeshing_tpu_torch.ops import association as A
 from surfelmeshing_tpu_torch.ops import blend, cuda_build, launch_counts
 from surfelmeshing_tpu_torch.ops import fusion as F
 from surfelmeshing_tpu_torch.ops import gather as G
+from surfelmeshing_tpu_torch.ops import integration as I
 from surfelmeshing_tpu_torch.ops import preprocess as pp
 from surfelmeshing_tpu_torch.parallel import shard
 from surfelmeshing_tpu_torch.pipeline import (ReconstructionPipeline,
@@ -229,7 +236,7 @@ from surfelmeshing_tpu_torch.viewer.probe import (MeshProbe, free_port,
 SCALE = 5000.0
 WARMUP_FRAMES = 4
 KERNEL_SOURCES = ("blend", "blend_wide", "gather", "l2_read",
-                  "preprocess", "association")
+                  "preprocess", "association", "integration")
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM3 bytes/s and
 # f32 operations/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -504,6 +511,46 @@ def phase_association(device) -> list:
             for r in out]
 
 
+def phase_integration(device) -> list:
+    """-> the kernels-line numbers of the integration kernel at each
+    shape."""
+    out = []
+    for label, (h, w, focal) in (("1200x680", (680, 1200, 600.0)),
+                                 ("640x480", (480, 640, 525.0))):
+        for exact in (False, True):
+            inp = kernel_timing.integration_inputs(
+                7, REPLICA_ROWS, h, w, focal, count=REPLICA_ROWS - 40_000,
+                exact=exact, device=device)
+            got = kernel_timing.integrate(inp)
+            torch.cuda.synchronize()
+            want = kernel_timing.integrate(inp, plain=True)
+            check(all(bits_equal(g, x) for g, x in zip(got, want)),
+                  f"integration {label} (exact conflicts {exact}) differs "
+                  f"from its plain version")
+            kinds = kernel_timing.integration_row_kinds(inp, got)
+            check(all(kinds.values()), f"integration {label}: a kind of "
+                  f"row is missing: {kinds}")
+            del got, want
+            if exact:
+                continue
+            r = kernel_timing.integration_times(inp)
+            check(r["call_launches"] == 1, f"integration: "
+                  f"{r['call_launches']} launches in a call")
+            print(f"[kernel] integration {label}, {REPLICA_ROWS} seeded rows "
+                  f"({kinds}), bit-identical to its plain version with "
+                  f"exact_conflict_arbitration off and on, 1 launch a "
+                  f"call; device {r['device_ms']:.4f} ms, host-inclusive "
+                  f"{r['host_ms']:.4f} ms; plain PyTorch device "
+                  f"{r['plain_ms']:.4f} ms, host-inclusive "
+                  f"{r['plain_host_ms']:.4f} ms; bound {r['bound_ms']:.5f} "
+                  f"ms (bytes: {r['bytes']} B), "
+                  f"{100.0 * r['bound_ms'] / r['device_ms']:.1f}% of it "
+                  f"reached")
+            out.append(dict(r, name=f"integration_{label}", max_abs_err=0.0,
+                            library_ms=None, bound_by="bytes"))
+    return out
+
+
 WIDE_SWEEP = ((8, 32), (8, 40), (12, 32), (12, 40), (16, 32), (16, 40),
               (16, 48), (20, 48), (24, 40), (24, 48))
 
@@ -611,6 +658,7 @@ def run_slice(device, video, cfg, modes=None, taps=None) -> dict:
     return dict(pipe=pipe, fused=fused, launches=blend.blend_core.launches,
                 preprocess=preprocess_counts("run_slice"),
                 association=A.launches(),
+                integration=I.integrate_measurements.launches,
                 wide_launches=blend.blend_core.wide_launches,
                 wide_kernels=blend.blend_core.wide_kernel_launches,
                 timed=timed, ms_frame=start.elapsed_time(end) / timed,
@@ -631,7 +679,8 @@ def phase_slice(device, video, seq) -> dict:
     print(f"[slice] 640x480, 500k capacity: {fused} frames fused, "
           f"{launches} blend launches, preprocessing launches "
           f"{run['preprocess']}, association launches "
-          f"{run['association']}, surfel count {count}, overflow "
+          f"{run['association']}, integration launches "
+          f"{run['integration']}, surfel count {count}, overflow "
           f"{int(pipe.state.overflow_count)}, {run['ms_frame']:.3f} ms/frame "
           f"(CUDA events over {run['timed']} frames after {WARMUP_FRAMES} "
           f"warm-up; host wall {run['wall_ms']:.3f} ms/frame), median "
@@ -645,9 +694,12 @@ def phase_slice(device, video, seq) -> dict:
     check(run["association"] == {"min_depth": fused, "support": fused},
           f"association launches {run['association']} for {fused} fused "
           f"frames")
+    check(run["integration"] == fused, f"integration launches "
+          f"{run['integration']} for {fused} fused frames")
     check(float(np.median(dist)) < 0.005, "surfels off the scene surface")
     return dict(launches=launches, fused=fused, taps=taps,
-                preprocess=run["preprocess"], ms_frame=run["ms_frame"],
+                preprocess=run["preprocess"], association=run["association"],
+                integration=run["integration"], ms_frame=run["ms_frame"],
                 radius=pipe.fusion_params.measurement_blending_radius,
                 state=live_state(pipe.state))
 
@@ -935,6 +987,7 @@ def phase_build():
     kernel_timing.load_l2_read_library()
     pp.load_library()
     A.load_library()
+    I.load_library()
     engine.MeshingEngine()
     built = ", ".join(f"csrc/{name}.cu -> {path.name}"
                       for name, path in zip(KERNEL_SOURCES, paths))
@@ -2273,6 +2326,7 @@ def run_phases(device, anchor) -> list:
     blend_times, wide_times = phase_kernel(device)
     preprocess_rows = phase_preprocess(device)
     association_rows = phase_association(device)
+    integration_rows = phase_integration(device)
     video, seq = synthetic_rgbd_video(SLICE_FRAMES, 640, 480,
                                       noise_sigma=0.002)
     slice_run = phase_slice(device, video, seq)
@@ -2341,6 +2395,10 @@ def run_phases(device, anchor) -> list:
             f"association_{k}", "association.cu", None,
             slice_run["association"][k],
             slice_run["association"][k] / slice_run["fused"], r))
+    for r in integration_rows:
+        kernels.append(kernel_entry(
+            r["name"], "integration.cu", None, slice_run["integration"],
+            slice_run["integration"] / slice_run["fused"], r))
     return kernels
 
 

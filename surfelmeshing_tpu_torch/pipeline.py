@@ -81,7 +81,7 @@ from .config import SurfelMeshingConfig
 from .dispatch import DispatchPolicy
 from .io.mesh_io import write_ply
 from .io.tum import RGBDVideo
-from .ops import association, blend, cuda_build
+from .ops import association, blend, cuda_build, integration
 from .ops import preprocess as pp
 # integrate_frame_bucketed: chunk.FrameStep calls it; wrappers patch both.
 from .ops.fusion import (FusionParams, StageTimer, SurfelState,  # noqa: F401
@@ -273,8 +273,8 @@ class ReconstructionPipeline:
     def trace_counters(self) -> dict:
         """The counters the tracer reports (utils/timing.py), read where
         they live: the dispatch policy's (DispatchPolicy.counters), this
-        pipeline's, and the process's blending, preprocessing and
-        association kernel launches and kernel builds."""
+        pipeline's, and the process's blending, preprocessing,
+        association and integration kernel launches and kernel builds."""
         return {**self.policy.counters(),
                 "graph_captures": self.graph_captures,
                 "graph_replays": self.graph_replays,
@@ -284,6 +284,8 @@ class ReconstructionPipeline:
                 "blend_launches": blend.blend_core.launches,
                 "preprocess_launches": sum(pp.launches().values()),
                 "association_launches": sum(association.launches().values()),
+                "integration_launches":
+                    integration.integrate_measurements.launches,
                 "kernel_builds": cuda_build.builds}
 
     def _log_device_memory(self) -> None:

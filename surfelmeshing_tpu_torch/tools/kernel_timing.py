@@ -26,6 +26,12 @@ association_times: both times of each csrc/association.cu launch (the
   prebuilt int64 indices with and without the entries of invalid pixels;
   association_inputs makes a seeded map's rows for it (and for the card
   tests).
+
+integration_times: both times of csrc/integration.cu's launch and of its
+  plain version (ops/integration.py::integrate_reference), beside its
+  bound; integration_inputs makes a seeded map's phase-5 inputs for it
+  (and for the card tests), integration_row_kinds counts the kinds of
+  rows a run met.
 """
 
 from __future__ import annotations
@@ -40,7 +46,8 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import association as assoc
-from ..ops import cuda_build
+from ..ops import cuda_build, fusion
+from ..ops import integration as integ
 from ..ops import preprocess as pp
 
 REPEATS = 30
@@ -281,6 +288,38 @@ ROOM = (6.0, 4.4, 2.7)
 REPLICA_FOCAL = 600.0
 
 
+def _room_view(rng, n: int, room) -> tuple:
+    """n points on the walls, floor and ceiling of a room, in creation
+    order (grouped by wall and patch), each with its wall's inward normal,
+    and a camera near the room's centre at a seeded heading and tilt:
+    -> (points (n, 3), normals (n, 3), camera centre, its (right, down,
+    forward) axes), f64 arrays in metres."""
+    areas = np.array([room[1] * room[2], room[1] * room[2],
+                      room[0] * room[2], room[0] * room[2],
+                      room[0] * room[1], room[0] * room[1]])
+    face = rng.choice(6, size=n, p=areas / areas.sum())
+    a, b = rng.random(n), rng.random(n)
+    pts = np.empty((n, 3))
+    normals = np.zeros((n, 3))
+    axis = face // 2                        # the wall's normal axis
+    for k, (i, j) in enumerate(((1, 2), (0, 2), (0, 1))):
+        sel = axis == k
+        low = face[sel] % 2 == 0
+        pts[sel, k] = np.where(low, 0.0, room[k])
+        normals[sel, k] = np.where(low, 1.0, -1.0)
+        pts[sel, i] = a[sel] * room[i]
+        pts[sel, j] = b[sel] * room[j]
+    order = np.lexsort((np.floor(a * room[0] / 0.25),
+                        np.floor(b * room[2] / 0.25), face))
+    centre = np.array(room) / 2 + rng.normal(0, 0.2, 3)
+    yaw, tilt = rng.uniform(0, 2 * np.pi), rng.uniform(-0.2, 0.2)
+    fwd = np.array([np.cos(yaw) * np.cos(tilt), np.sin(yaw) * np.cos(tilt),
+                    np.sin(tilt)])
+    right = np.array([np.sin(yaw), -np.cos(yaw), 0.0])
+    down = np.cross(fwd, right)
+    return pts[order], normals[order], centre, (right, down, fwd)
+
+
 def association_inputs(seed: int, n: int, height: int, width: int,
                        focal: float = REPLICA_FOCAL, count: int = None,
                        room=ROOM) -> dict:
@@ -297,26 +336,7 @@ def association_inputs(seed: int, n: int, height: int, width: int,
     (int32 row index)."""
     rng = np.random.default_rng(seed)
     count = n if count is None else count
-    sx, sy, sz = room
-    areas = np.array([sy * sz, sy * sz, sx * sz, sx * sz, sx * sy, sx * sy])
-    face = rng.choice(6, size=n, p=areas / areas.sum())
-    a, b = rng.random(n), rng.random(n)
-    pts = np.empty((n, 3))
-    axis = face // 2                        # the wall's normal axis
-    for k, (i, j) in enumerate(((1, 2), (0, 2), (0, 1))):
-        sel = axis == k
-        pts[sel, k] = np.where(face[sel] % 2 == 0, 0.0, room[k])
-        pts[sel, i] = a[sel] * room[i]
-        pts[sel, j] = b[sel] * room[j]
-    order = np.lexsort((np.floor(a * room[0] / 0.25),
-                        np.floor(b * room[2] / 0.25), face))
-    pts = pts[order]
-    centre = np.array(room) / 2 + rng.normal(0, 0.2, 3)
-    yaw, tilt = rng.uniform(0, 2 * np.pi), rng.uniform(-0.2, 0.2)
-    fwd = np.array([np.cos(yaw) * np.cos(tilt), np.sin(yaw) * np.cos(tilt),
-                    np.sin(tilt)])
-    right = np.array([np.sin(yaw), -np.cos(yaw), 0.0])
-    down = np.cross(fwd, right)
+    pts, _, centre, (right, down, fwd) = _room_view(rng, n, room)
     rel = pts - centre
     x, y, z = (rel @ axis_ for axis_ in (right, down, fwd))
     x, y, z = (torch.from_numpy(v.astype(np.float32)) for v in (x, y, z))
@@ -428,3 +448,220 @@ def association_times(rows: dict, hw: int, depth_scaling: float,
             scatter_valid_ms=device_ms(scatter_step(False), 3),
             **bounds[name]))
     return out
+
+
+# Pixel factors of integration_inputs' measurements, by mode: on the
+# surface, beyond it (the conflict zone), in front of it (occluding), no
+# depth, on the surface with a pre-blend depth beyond it.
+_MEAS_MODES = (0.5, 0.2, 0.1, 0.1, 0.1)
+LAYOUTS = ("rows", "tiled", "shard", "bucket")
+
+
+def integration_inputs(seed: int, n: int, height: int, width: int,
+                       focal: float = REPLICA_FOCAL, count: int = None,
+                       frame: int = 500, exact: bool = False,
+                       layout: str = "rows", room=ROOM,
+                       device="cpu") -> dict:
+    """A seeded map's phase-5 inputs, as ops/fusion.py::_fuse hands them
+    to ops/integration.py::integrate_measurements: n surfel rows on the
+    walls of a room (association_inputs' layout; rows at or past `count`
+    unused), seen by a camera near its centre, at frame `frame`.  The
+    rows are the kinds phase 5 meets: confidences from 0.25 to 5 (a
+    conflict re-initialises those at 1 or below, decrements the rest),
+    merged-away rows (radius -1), rows created this frame, normals off
+    their wall by a few degrees, and side pixels off the image.  Each
+    pixel's measurement is on the surface of the nearest row there, beyond
+    it (a conflict), in front of it (occluding it), missing, or on the
+    surface with a pre-blend depth beyond it; the measurement normal faces
+    the pixel's ray.  `exact` adds the conflictor map of
+    exact_conflict_arbitration.  `layout`: "rows" (idx the row index),
+    "tiled" (a working set's global indices in permuted tiles of 256, its
+    last 1,024 rows unused: INVALID_INDEX, out of view), "shard" (idx
+    offset by 3,000,000, a rank's rows) or "bucket" (the neighbour tensors
+    the leading columns of wider ones).  -> dict: params (FusionParams),
+    pack, neighbors, nbr_dist, rows (integration.Rows), maps
+    (integration.Maps), local_T_global, global_T_local (3, 4) and frame
+    (int), tensors on `device`."""
+    F = fusion
+    rng = np.random.default_rng(seed)
+    count = n if count is None else count
+    pts, normals, centre, axes = _room_view(rng, n, room)
+    rot = np.stack(axes)                 # rows: right, down, forward
+    poses = [torch.from_numpy(np.ascontiguousarray(np.concatenate(
+        [r, t[:, None]], 1), np.float32)).to(device)
+        for r, t in ((rot, -(rot @ centre)), (rot.T, centre))]
+    live = np.arange(n) < count
+    if layout == "tiled":
+        live &= np.arange(n) < n - 1024
+    pack = np.zeros((n, F.PACK_WIDTH), np.float32)
+    pack[:, F.PX:F.PZ + 1] = pts
+    pack[:, F.SX:F.SZ + 1] = pts + rng.normal(0, 1e-3, (n, 3))
+    nrm = normals + rng.normal(0, 0.05, (n, 3))
+    pack[:, F.NX:F.NZ + 1] = nrm / np.linalg.norm(nrm, axis=1)[:, None]
+    pack[:, F.RCNT] = rng.integers(0, 5, n)
+    pack[:, F.DETACH] = rng.random(n) < 0.1
+    pack[:, F.CONF] = rng.choice([0.25, 0.5, 1.0, 1.5, 2.0, 3.5, 5.0], n)
+    kind = rng.random(n)
+    pack[:, F.RAD] = np.where(kind < 0.04, -1.0, np.where(
+        kind < 0.05, 0.0, rng.uniform(1e-6, 5e-5, n)))
+    pack[:, F.CR:F.CB + 1] = rng.integers(0, 256, (n, 3))
+    ints = pack.view(np.int32)
+    ints[:, F.STAMP] = frame - rng.integers(1, 40, n)
+    ints[:, F.CREATION] = np.where(rng.random(n) < 0.03, frame,
+                                   frame - rng.integers(1, 400, n))
+    pack[~live] = 0.0
+    ints[~live, F.STAMP] = -(2 ** 30)
+    slots = np.where(rng.random((4, n)) < 0.3, assoc.INVALID_INDEX,
+                     rng.integers(0, max(count, 1), (4, n))).astype(np.int32)
+    slot_dist = np.where(slots == assoc.INVALID_INDEX, np.inf,
+                         rng.uniform(0, 1e-3, (4, n))).astype(np.float32)
+    wide = 4096 if layout == "bucket" else 0
+    neighbors, nbr_dist = (torch.from_numpy(np.pad(
+        a, ((0, 0), (0, wide)), constant_values=fill)).to(device)[:, :n]
+        for a, fill in ((slots, 7), (slot_dist, 0.5)))
+    if layout == "tiled":
+        tiles = rng.permutation(-(-n // 256))[:, None] * 256
+        idx = (tiles + np.arange(256)).reshape(-1)[:n] + 3_000_000
+        idx[~live] = assoc.INVALID_INDEX
+    else:
+        idx = np.arange(n) + (3_000_000 if layout == "shard" else 0)
+
+    params = F.FusionParams(width=width, height=height, fx=focal, fy=focal,
+                            cx=width / 2, cy=height / 2,
+                            exact_conflict_arbitration=exact)
+    pack_t = torch.from_numpy(pack).to(device)
+    lx, ly, z = F._transform(poses[0], pack_t[:, F.PX], pack_t[:, F.PY],
+                             pack_t[:, F.PZ])
+    u, v, px, py, in_image = F._project(params, lx, ly, z)
+    sx, sy, side_ok = F._side_pixel(params, u, v, px, py)
+    on = torch.from_numpy(live).to(device) & in_image
+    rows = integ.Rows(on, side_ok, torch.from_numpy(idx.astype(np.int32))
+                      .to(device), lx, ly, z,
+                      pp.sqrt_f32(lx * lx + ly * ly + z * z), px, py, sx, sy)
+
+    hw = height * width
+    invalid = assoc.INVALID_INDEX
+    pix_a = torch.where(on, py * width + px, invalid)
+    pix_b = torch.where(on & side_ok, sy * width + sx, invalid)
+    first = assoc.min_depth_map_reference(hw, pix_a, pix_b, z)
+    base = first.double().cpu().numpy()
+    base = np.where(np.isfinite(base), base, rng.uniform(0.5, 3.0, hw))
+    mode = rng.choice(5, hw, p=_MEAS_MODES)
+    factor = np.choose(mode, [1 + rng.normal(0, 0.01, hw),
+                              rng.uniform(1.08, 1.5, hw),
+                              rng.uniform(0.6, 0.93, hw), np.zeros(hw),
+                              1 + rng.normal(0, 0.01, hw)])
+    meas = base * factor
+    premeas = np.where(mode == 4, 1.2 * base, np.where(
+        (mode == 1) & (rng.random(hw) < 0.3), base, meas))
+    ys, xs = np.divmod(np.arange(hw), width)
+    ray = np.stack([(xs + 0.5 - width / 2) / focal,
+                    (ys + 0.5 - height / 2) / focal, np.ones(hw)], 1)
+    mn = -ray / np.linalg.norm(ray, axis=1)[:, None] + \
+        rng.normal(0, 0.1, (hw, 3))
+    mn /= np.linalg.norm(mn, axis=1)[:, None]
+    mnx, mny = (torch.from_numpy(mn[:, k].astype(np.float32)).to(device)
+                for k in (0, 1))
+    colour = torch.from_numpy(rng.integers(0, 256, (3, hw))
+                              .astype(np.float32)).to(device)
+    radius = np.where(rng.random(hw) < 0.03, 0.0,
+                      rng.uniform(1e-6, 5e-5, hw))
+    conflictor = None
+    if exact:
+        claims = torch.from_numpy(rng.random((2, n)) < 0.5).to(device)
+        conflictor = assoc.min_index_map_reference(
+            hw, pix_a, pix_b, (pix_a != invalid) & claims[0],
+            (pix_b != invalid) & claims[1], rows.idx)
+
+    def f32(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device)
+
+    maps = integ.Maps(
+        f32(meas), f32(premeas), first,
+        torch.from_numpy(rng.integers(0, 6, hw).astype(np.int32)).to(device),
+        colour[0] + colour[1] * 256.0 + colour[2] * 65536.0, mnx, mny,
+        -pp.sqrt_f32((1.0 - mnx * mnx - mny * mny).clamp_min(0.0)),
+        f32(radius), conflictor)
+    return dict(params=params, pack=pack_t, neighbors=neighbors,
+                nbr_dist=nbr_dist, rows=rows, maps=maps,
+                local_T_global=poses[0], global_T_local=poses[1],
+                frame=frame)
+
+
+def integrate(inputs: dict, plain: bool = False, pack=None):
+    """One phase-5 call on `inputs` (integration_inputs'), on `pack` (a
+    copy of theirs by default, which the card route updates in place):
+    integrate_measurements, or with `plain` integrate_reference.  ->
+    (pack, neighbors, nbr_dist)."""
+    fn = integ.integrate_reference if plain else integ.integrate_measurements
+    return fn(inputs["params"],
+              inputs["pack"].clone() if pack is None else pack,
+              inputs["neighbors"], inputs["nbr_dist"], inputs["rows"],
+              inputs["maps"], inputs["local_T_global"],
+              inputs["global_T_local"], inputs["frame"])
+
+
+def integration_row_kinds(inputs: dict, out: tuple) -> dict:
+    """How many rows of each kind a phase-5 run `out` on `inputs` met:
+    in view, merged-away, created this frame, with no side pixel (on the
+    inputs); re-initialised (creation stamp set this frame), decremented
+    (confidence fell) and integrated (update stamp set this frame, not
+    re-initialised; all three from the output)."""
+    F = fusion
+    frame = inputs["frame"]
+    on = inputs["rows"].on
+    before, after = inputs["pack"], out[0]
+    created_b = before.view(torch.int32)[:, F.CREATION] == frame
+    reinit = (after.view(torch.int32)[:, F.CREATION] == frame) & ~created_b
+    kinds = dict(
+        in_view=on, merged_away=on & (before[:, F.RAD] == -1.0),
+        created_this_frame=on & created_b, no_side_pixel=on &
+        ~inputs["rows"].side_ok, reinitialised=reinit,
+        decremented=(after[:, F.CONF] < before[:, F.CONF]) & ~reinit,
+        integrated=(after.view(torch.int32)[:, F.STAMP] == frame) & ~reinit)
+    return {k: int(v.sum()) for k, v in kinds.items()}
+
+
+def integration_bound(inputs: dict, out: tuple) -> dict:
+    """The least time the card could take for the launch: what these
+    inputs need read once and the outputs written once at the HBM rate.
+    Every row: its flag and its 4 neighbour slots and slot distances in
+    and out (65 B); a row in view and not merged away: its pack row, side
+    flag, index, camera-space position, distance and pixel (101 B), and
+    its side pixel (8 B) when it has one; a changed row: its pack row out
+    (72 B); each pixel such a row reads, once, in each map read (10 maps
+    with the conflictor, else 9)."""
+    F = fusion
+    rows, maps, params = inputs["rows"], inputs["maps"], inputs["params"]
+    n = rows.on.numel()
+    read = rows.on & (inputs["pack"][:, F.RAD] >= 0)
+    side = read & rows.side_ok
+    changed = (out[0].view(torch.int32) !=
+               inputs["pack"].view(torch.int32)).any(dim=1)
+    pixels = torch.cat([(rows.py * params.width + rows.px)[read],
+                        (rows.sy * params.width + rows.sx)[side]])
+    n_maps = sum(m is not None for m in maps) - 1   # premeas or conflictor
+    nbytes = 65 * n + 101 * int(read.sum()) + 8 * int(side.sum()) + \
+        72 * int(changed.sum()) + 4 * n_maps * int(pixels.unique().numel())
+    return dict(bytes=nbytes, bound_ms=1000.0 * nbytes / HBM_BYTES_PER_S)
+
+
+def integration_times(inputs: dict, repeats: int = REPEATS) -> dict:
+    """The launch's device and host-inclusive ms on `inputs` (CUDA
+    tensors; repeated calls update one copy of the pack in place) and the
+    launches of one call, its plain version's device and host-inclusive ms
+    (integrate_reference, 3 calls), and its bound."""
+    device = inputs["pack"].device
+    pack = inputs["pack"].clone()
+    before = integ.integrate_measurements.launches
+    out = integrate(inputs, pack=pack)
+    launched = integ.integrate_measurements.launches - before
+    bound = integration_bound(inputs, out)
+    kernel = functools.partial(integrate, inputs, pack=pack)
+    plain = functools.partial(integrate, inputs, plain=True,
+                              pack=inputs["pack"])
+    return dict(call_launches=launched,
+                device_ms=device_ms(kernel, repeats),
+                host_ms=host_ms(kernel, device, repeats),
+                plain_ms=device_ms(plain, 3),
+                plain_host_ms=host_ms(plain, device, 3), **bound)

@@ -20,9 +20,13 @@ wait span).  Run from the root of the repository, which holds benchmark/:
 
     python3 -m surfelmeshing_tpu_torch.tools.trace_cells \\
         --workload <cell> --seed <n> [--window 30] [--pairs 3] [--out DIR]
+    [--set KEY=VALUE ...]
 
 --cpu runs the cell at the size of the benchmark's CPU tests
-(benchmark/tests/tiny_cell.py).
+(benchmark/tests/tiny_cell.py).  --set replaces one of the cell's settings
+("config.<key>" or "traffic.<key>", the value as JSON), e.g.
+`--set traffic.frame_chunk=1` dispatches a chunked cell per frame, where
+the fusion phases' device spans (dev.fusion.<column>) are recorded.
 """
 
 import argparse
@@ -323,7 +327,14 @@ def main(argv=None) -> int:
     ap.add_argument("--pairs", type=int, default=3)
     ap.add_argument("--out", default=str(ROOT / "build" / "trace_cells"))
     ap.add_argument("--cpu", action="store_true")
+    ap.add_argument("--set", action="append", default=[],
+                    metavar="KEY=VALUE", help="a cell setting replaced "
+                    "(config.<key> or traffic.<key>; the value as JSON)")
     args = ap.parse_args(argv)
+    overrides = {}
+    for item in args.set:
+        key, _, value = item.partition("=")
+        overrides[key] = json.loads(value)
     os.environ.setdefault("TORCH_EXTENSIONS_DIR",
                           str(ROOT / "build" / "torch_extensions"))
     os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
@@ -332,13 +343,15 @@ def main(argv=None) -> int:
         from benchmark.tests import tiny_cell
         card = "cpu"
         run = C.Run(args.workload, args.seed, args.window, False, t_start,
-                    device="cpu", overrides=tiny_cell.overrides(args.workload))
+                    device="cpu", overrides={
+                        **tiny_cell.overrides(args.workload), **overrides})
     else:
         card = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True,
             text=True).stdout.strip()
-        run = C.Run(args.workload, args.seed, args.window, False, t_start)
+        run = C.Run(args.workload, args.seed, args.window, False, t_start,
+                    overrides=overrides)
     run.build()
     run.warm_up()
     if not args.cpu:
@@ -348,7 +361,8 @@ def main(argv=None) -> int:
     order = []
     for p in range(args.pairs):
         order += [False, True] if p % 2 == 0 else [True, False]
-    tag = {"workload": args.workload, "seed": args.seed, "card": card}
+    tag = {"workload": args.workload, "seed": args.seed, "card": card,
+           "set": overrides}
     lines = [dict(site_costs(run.device), **tag)]
     print(json.dumps(lines[-1]), flush=True)
     for on in order:

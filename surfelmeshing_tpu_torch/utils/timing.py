@@ -32,9 +32,9 @@ object, no event, no synchronisation.  While it is on:
   copies to the device), d2h_bytes (snapshot copies); the counters kept
   elsewhere (creations made and deferred as the count readbacks confirm
   them, graph captures and replays, bucket picks, snapshots and rows
-  shipped, blending, preprocessing and association launches, kernel
-  builds) are read where they live, from every watched pipeline, and
-  reported as their change.
+  shipped, blending, preprocessing, association and integration
+  launches, kernel builds) are read where they live, from every watched
+  pipeline, and reported as their change.
 - with start(profile=True) every host span is also a
   torch.profiler.record_function range, so a profiler trace shows the
   spans with the kernels they launched.

@@ -7,7 +7,7 @@ graph's counts added at each replay."""
 import pytest
 
 from surfelmeshing_tpu_torch.ops import association, blend, gather, \
-    launch_counts
+    integration, launch_counts  # noqa: F401 (integration registers itself)
 from surfelmeshing_tpu_torch.ops import preprocess as pp
 
 
@@ -24,7 +24,8 @@ def test_every_kernel_wrapper_is_registered():
         "blend_core", "blend_wide", "blend_wide_kernels",
         "gather_rows", "gather_rows3", "gather_lane",
         *(f"preprocess_{k}" for k in pp.KERNELS),
-        *(f"association_{k}" for k in association.KERNELS)}
+        *(f"association_{k}" for k in association.KERNELS),
+        "integration"}
     assert list(pp.KERNELS) == ["bilateral", "outlier", "erode", "normals",
                                 "radii"]
 

@@ -216,7 +216,8 @@ def test_every_fused_frame_has_one_frame_span(runs, chunk):
         "snapshots": len(SNAPSHOT_AT),
         "snapshot_rows_shipped": pipe.snapshot_rows_shipped,
         "blend_launches": 0, "preprocess_launches": 0,
-        "association_launches": 0, "kernel_builds": 0}]
+        "association_launches": 0, "integration_launches": 0,
+        "kernel_builds": 0}]
 
 
 @pytest.mark.parametrize("chunk", [1, 4])
@@ -480,16 +481,19 @@ def test_trace_cells_reads_a_cell_on_the_cpu(tmp_path):
     stretches alternate the tracer, the traced ones read the six metrics,
     the creations a frame and frame spans that sum to the benchmark's
     process_frame spans, the program's spans change no number of the
-    device summary, and the check passes."""
+    device summary, and the check passes; a --set setting is applied over
+    the cell's and named in every line."""
     assert trace_cells.main([
         "--workload", "tum640_20m_defaults.explore.live", "--seed",
         "2147483999", "--window", "0.5", "--stretch", "0.5", "--pairs",
-        "1", "--out", str(tmp_path), "--cpu"]) == 0
+        "1", "--out", str(tmp_path), "--cpu", "--set",
+        "traffic.check_frames=3"]) == 0
     lines = [json.loads(line) for line in (
         tmp_path / "trace_tum640_20m_defaults.explore.live_2147483999.jsonl"
     ).read_text().splitlines()]
     costs, plain, profiled, checks = lines[0], lines[1:3], lines[3:5], \
         lines[5]
+    assert all(line["set"] == {"traffic.check_frames": 3} for line in lines)
     assert costs["span_pair_us"] > 0 and costs["event_mark_us"] > 0
     assert [r["tracer"] for r in plain + profiled] == [False, True] * 2
     for r in (plain[1], profiled[1]):
