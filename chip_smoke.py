@@ -7,7 +7,7 @@ Phases, each printing one or more lines:
      its power limit, turns TF32 off;
   2. build: compiles csrc/blend.cu, blend_wide.cu (both with the shared
      header blend_common.cuh), gather.cu, l2_read.cu, preprocess.cu,
-     association.cu and integration.cu (one nvcc each)
+     association.cu, integration.cu and tiling.cu (one nvcc each)
      and the native mesher (g++), all started together;
   3. kernel: the one-launch blending kernel bit for bit against its plain
      PyTorch version on seeded maps at 640x480 with radii 1, 2, 3, 6, 12
@@ -43,6 +43,12 @@ Phases, each printing one or more lines:
      meets among them, one launch a call, and its device, host-inclusive
      and plain times beside its bound at both shapes
      (tools/kernel_timing.py::integration_times);
+     tiling: csrc/tiling.cu's tile selection bit for bit against its
+     plain version on seeded maps of the default capacity (20,000,768
+     rows) with 0.5M and 1.8M live rows, every kind of row the selection
+     meets among them, one launch a call, and its device, host-inclusive
+     and plain times beside its bound (tools/kernel_timing.py::
+     tiling_times);
   4. slice: ReconstructionPipeline at 640x480 with 500k surfel capacity and
      default settings over the 24-frame synthetic video, every frame with a
      full outlier window fused; launch counts, zeroed just before, prove
@@ -92,10 +98,12 @@ Phases, each printing one or more lines:
      (slice and e2e also print their peak device memory);
  12. e2e-20m: the same loop at the default 20M capacity with the auto
      active-set budget (tools/bench_e2e.py's `20m:-1`): no tile may be
-     skipped, every fused frame launches the blending kernel once, and the
-     final state equals e2e's bit for bit; then, for the record, 4 frames
-     of the full-shape 20M path (budget 0 with a bucket step of the
-     capacity: every pass over 20M rows) timed with CUDA events;
+     skipped, every fused frame launches the blending kernel and the tile
+     selection kernel once (e2e, count-sized, launches the latter not at
+     all), and the final state equals e2e's bit for bit; then, for the
+     record, 4 frames of the full-shape 20M path (budget 0 with a bucket
+     step of the capacity: every pass over 20M rows) timed with CUDA
+     events;
  13. bench: the port's bench entry points, chunked as the JAX tools
      ship them (frame_chunk 4: a CUDA-graph replay a chunk).  `python -m
      surfelmeshing_tpu_torch.bench` in a process of its own (rc 0, one
@@ -175,8 +183,8 @@ Phases 7-9, 13, buckets, chunk and 17-21 print their wall time.
 Then one JSON line describing the kernels (per kernel: launches on its
 path and per main-path frame, for the blending kernel also on the [batch],
 [shard], [video] app, [live-viewer], [bench], [buckets] and [chunk] paths,
-for each preprocessing kernel on the [batch], [bench] and [chunk] paths,
-max_abs_err
+for each preprocessing kernel on the [batch], [bench] and [chunk] paths;
+the tile selection kernel's path is [e2e-20m]'s tiled frames), max_abs_err
 against the plain version, device / host-inclusive / plain times, the
 bound with what sets it, and the one-call PyTorch yardstick or null)
 and, last, the result line.
@@ -219,6 +227,7 @@ from surfelmeshing_tpu_torch.ops import fusion as F
 from surfelmeshing_tpu_torch.ops import gather as G
 from surfelmeshing_tpu_torch.ops import integration as I
 from surfelmeshing_tpu_torch.ops import preprocess as pp
+from surfelmeshing_tpu_torch.ops import tiling
 from surfelmeshing_tpu_torch.parallel import shard
 from surfelmeshing_tpu_torch.pipeline import (ReconstructionPipeline,
                                               preprocess_kwargs)
@@ -236,7 +245,7 @@ from surfelmeshing_tpu_torch.viewer.probe import (MeshProbe, free_port,
 SCALE = 5000.0
 WARMUP_FRAMES = 4
 KERNEL_SOURCES = ("blend", "blend_wide", "gather", "l2_read",
-                  "preprocess", "association", "integration")
+                  "preprocess", "association", "integration", "tiling")
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM3 bytes/s and
 # f32 operations/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -548,6 +557,39 @@ def phase_integration(device) -> list:
                   f"reached")
             out.append(dict(r, name=f"integration_{label}", max_abs_err=0.0,
                             library_ms=None, bound_by="bytes"))
+    return out
+
+
+def phase_tiling(device) -> list:
+    """-> the kernels-line numbers of the tile selection kernel at each
+    live count."""
+    out = []
+    for live in (500_000, 1_800_000):
+        inp = kernel_timing.tiling_inputs(7, 20_000_768, live, device=device)
+        got = kernel_timing.tile_select(inp)
+        torch.cuda.synchronize()
+        want = kernel_timing.tile_select(inp, plain=True)
+        check(torch.equal(got.cpu(), want.cpu()),
+              f"tiling at {live} live rows differs from its plain version")
+        kinds = kernel_timing.tiling_row_kinds(inp)
+        check(all(kinds.values()), f"tiling: a kind of row is missing: "
+              f"{kinds}")
+        r = kernel_timing.tiling_times(inp)
+        check(r["call_launches"] == 1, f"tiling: {r['call_launches']} "
+              f"launches in a call")
+        print(f"[kernel] tiling, 20,000,768 rows, {live} live ({kinds}), "
+              f"{int(got.sum())} of {got.numel()} tiles flagged, "
+              f"bit-identical to its plain version, 1 launch a call; "
+              f"device {r['device_ms']:.4f} ms, host-inclusive "
+              f"{r['host_ms']:.4f} ms; plain PyTorch device "
+              f"{r['plain_ms']:.4f} ms, host-inclusive "
+              f"{r['plain_host_ms']:.4f} ms; bound {r['bound_ms']:.5f} ms "
+              f"(bytes: {r['bytes']} B), "
+              f"{100.0 * r['bound_ms'] / r['device_ms']:.1f}% of it reached")
+        out.append(dict(r, name=f"tiling_{live}", max_abs_err=0.0,
+                        library_ms=None, bound_by="bytes"))
+        del inp, got, want
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1155,8 +1197,8 @@ def e2e_config(capacity: int, budget: int) -> SurfelMeshingConfig:
 
 def run_e2e(device, cfg, label: str) -> dict:
     """tools/bench_e2e.py::run_config on the port (no XLA compile counter
-    or rollback: nothing compiles inside the loop); blending-kernel
-    launches are counted over all its frames."""
+    or rollback: nothing compiles inside the loop); blending- and
+    tile-selection-kernel launches are counted over all its frames."""
     chunk, warmup = E2E_CHUNK, E2E_WARMUP
     video, _ = synthetic_rgbd_video(E2E_FRAMES, 640, 480, noise_sigma=0.002)
     torch.cuda.reset_peak_memory_stats()
@@ -1202,6 +1244,7 @@ def run_e2e(device, cfg, label: str) -> dict:
     pipe.block_until_ready()
     wall = time.perf_counter() - t0
     launches = blend.blend_core.launches
+    tiled = tiling.tile_flags.launches
     preprocess = preprocess_counts(label)
     timed_captures = pipe.graph_captures - captures_before
     mesher.drain()
@@ -1236,7 +1279,7 @@ def run_e2e(device, cfg, label: str) -> dict:
     check(rows < max(snaps, 1) * surfels,
           f"{label}: delta snapshots shipped as many rows as full ones")
     return dict(summary=summary, split=split, launches=launches, fused=fused,
-                preprocess=preprocess,
+                tiling=tiled, preprocess=preprocess,
                 budgets=budgets, picks=[n for _, n in pipe.bucket_pick_log],
                 chunks=[f for f, _ in pipe.bucket_pick_log],
                 graph_captures=pipe.graph_captures,
@@ -1247,10 +1290,13 @@ def run_e2e(device, cfg, label: str) -> dict:
 
 
 def phase_e2e(device) -> dict:
-    """e2e at 500k, count-sized (budget 0)."""
+    """e2e at 500k, count-sized (budget 0): no tile selection."""
     run = run_e2e(device, e2e_config(500_000, 0), "e2e")
     print(f"[e2e] 640x480, 500k capacity, async meshing: {run['summary']}")
-    print(f"[e2e] after the timed frames, {run['split']} (host clock)")
+    print(f"[e2e] after the timed frames, {run['split']} (host clock); "
+          f"{run['tiling']} tile selection launches")
+    check(run["tiling"] == 0, f"e2e: {run['tiling']} tile selection "
+          f"launches on the count-sized route")
     return run
 
 
@@ -1293,10 +1339,11 @@ def run_20m(device, full: bool) -> dict:
                 count=pipe.surfel_count(), state=live_state(pipe.state))
 
 
-def phase_e2e_20m(device, e2e) -> dict:
+def phase_e2e_20m(device, e2e) -> tuple:
     """e2e at the default 20M capacity with the auto active-set budget,
     held to e2e's final state; then 4 full-shape 20M frames (budget 0, a
-    bucket step of the capacity), timed; -> that full-shape run."""
+    bucket step of the capacity), timed; -> (the tiled run, that
+    full-shape run)."""
     capacity = SurfelMeshingConfig().max_surfel_count
     run = run_e2e(device, e2e_config(capacity, -1), "e2e-20m")
     state = run["state"]
@@ -1306,11 +1353,14 @@ def phase_e2e_20m(device, e2e) -> dict:
           f"(-1), async meshing: {run['summary']}")
     print(f"[e2e-20m] budgets used {budgets}; final active tiles "
           f"{int(state['active_tile_count'])}, skipped tiles {skipped}; "
-          f"{run['launches']} blend launches for {run['fused']} fused "
-          f"frames; {run['split']} (host clock)")
+          f"{run['launches']} blend and {run['tiling']} tile selection "
+          f"launches for {run['fused']} fused frames; {run['split']} (host "
+          f"clock)")
     check(skipped == 0, f"e2e-20m: {skipped} tiles skipped")
     check(run["launches"] == run["fused"], f"e2e-20m: {run['launches']} "
           f"blend launches for {run['fused']} fused frames")
+    check(run["tiling"] == run["fused"], f"e2e-20m: {run['tiling']} tile "
+          f"selection launches for {run['fused']} fused frames")
     want = e2e["state"]
     check(states_equal(state, want), "e2e-20m: final state differs from "
           "e2e's")
@@ -1326,7 +1376,7 @@ def phase_e2e_20m(device, e2e) -> dict:
           f"after 1 warm-up (host wall {full['wall_ms']:.3f} ms/frame), "
           f"{full['count']} surfels, {full['peak']} MiB peak device memory "
           f"allocated")
-    return full
+    return run, full
 
 
 def run_bench(smoke: bool) -> tuple:
@@ -2327,6 +2377,7 @@ def run_phases(device, anchor) -> list:
     preprocess_rows = phase_preprocess(device)
     association_rows = phase_association(device)
     integration_rows = phase_integration(device)
+    tiling_rows = phase_tiling(device)
     video, seq = synthetic_rgbd_video(SLICE_FRAMES, 640, 480,
                                       noise_sigma=0.002)
     slice_run = phase_slice(device, video, seq)
@@ -2341,7 +2392,7 @@ def run_phases(device, anchor) -> list:
     phase_ab(device)
     gathers = phase_gather(device)
     e2e = phase_e2e(device)
-    full_20m = phase_e2e_20m(device, e2e)
+    tiled_20m, full_20m = phase_e2e_20m(device, e2e)
     bench_run = phase_bench(device)
     app = phase_app(device)
     phase_app_20m(device, app["ply"])
@@ -2399,6 +2450,10 @@ def run_phases(device, anchor) -> list:
         kernels.append(kernel_entry(
             r["name"], "integration.cu", None, slice_run["integration"],
             slice_run["integration"] / slice_run["fused"], r))
+    kernels += [kernel_entry(r["name"], "tiling.cu", None,
+                             tiled_20m["tiling"],
+                             tiled_20m["tiling"] / tiled_20m["fused"], r)
+                for r in tiling_rows]
     return kernels
 
 

@@ -21,7 +21,10 @@ and auto-budget policies read the surfel count and that demand through
 non-blocking copies into pinned memory, one per dispatch, consumed once
 their CUDA event has fired; the frame loop waits only while more than
 max_inflight_dispatches - 1 are outstanding, the JAX package's throttle.
-A new map (a loaded checkpoint) restarts both from its count (reset).
+The same readback carries the running count of skipped tiles, and under
+the auto budget the tracer's tile counters (counters) are summed from the
+confirmed readbacks.  A new map (a loaded checkpoint) restarts both
+from its count (reset).
 """
 
 from __future__ import annotations
@@ -49,6 +52,12 @@ def start_readback(values: torch.Tensor) -> tuple:
     return host, event
 
 
+def readback_values(state: SurfelState) -> list:
+    """The map's counters a readback copies, in its order."""
+    return [state.surfel_count, state.active_tile_count,
+            state.deferred_count, state.skipped_tile_count]
+
+
 class DispatchPolicy:
     """The picks of one pipeline, from `params` (the fusion parameters
     each dispatch starts from), and the bookkeeping they read.  bucket_for
@@ -61,16 +70,21 @@ class DispatchPolicy:
         self.params = params
         self.pixels = camera.width * camera.height
         self._bucket_for = bucket_for or self.shape_bucket_for
-        # The last confirmed surfel count, tile demand and deferred
-        # total, the creations confirmed, the frames dispatched since the
-        # last confirmed readback, the FIFO of in-flight readbacks (host
-        # tensor, CUDA event or None, frames) and recent per-frame growth
-        # samples (for adaptive_creation_bound); the active-set budget of
-        # the last pick and (frames, n_eff) of every pick.
+        # The last confirmed surfel count, tile demand, deferred and
+        # skipped totals, the creations confirmed, the confirmed tile
+        # demand and working-set rows summed over frames, the frames
+        # dispatched since the last confirmed readback, the FIFO of
+        # in-flight readbacks (host tensor, CUDA event or None, frames,
+        # budget) and recent per-frame growth samples (for
+        # adaptive_creation_bound); the active-set budget of the last pick
+        # and (frames, n_eff) of every pick.
         self.confirmed_count = 0
         self.lagged_active_tiles = 0
         self.confirmed_deferred = 0
+        self.confirmed_skipped = 0
         self.creations_made = 0
+        self.tiles_active = 0
+        self.tiles_working_rows = 0
         self.unconfirmed_frames = 0
         self.readbacks = []
         self.growth_window = []
@@ -80,9 +94,8 @@ class DispatchPolicy:
     def reset(self, state: SurfelState) -> None:
         """Restart from a new map's counts, read here (a blocking read),
         dropping the old map's readbacks."""
-        count, tiles, self.confirmed_deferred = torch.stack(
-            [state.surfel_count, state.active_tile_count,
-             state.deferred_count]).tolist()
+        count, tiles, self.confirmed_deferred, self.confirmed_skipped = \
+            torch.stack(readback_values(state)).tolist()
         self.readbacks = []
         self.restore((count, tiles, []))
 
@@ -97,11 +110,20 @@ class DispatchPolicy:
         self.unconfirmed_frames = 0
 
     def counters(self) -> dict:
-        """The tracer's creation counters, as far as the readbacks have
-        confirmed them (they lag the dispatches by the readbacks in
-        flight; a fixed active budget starts none)."""
-        return {"creations.made": self.creations_made,
-                "creations.deferred": self.confirmed_deferred}
+        """The tracer's creation counters and, under the auto budget, its
+        tile counters, as far as the readbacks have confirmed them (they
+        lag the dispatches by the readbacks in flight; a fixed active
+        budget starts none): tiles.active sums the tile demand of each
+        frame (a sub-chunk's last frame stands for each of its frames),
+        tiles.working_rows the budget in rows of each frame, and
+        tiles.skipped is the map's running count of skipped tiles."""
+        out = {"creations.made": self.creations_made,
+               "creations.deferred": self.confirmed_deferred}
+        if self.config.active_surfel_budget == -1:
+            out.update({"tiles.active": self.tiles_active,
+                        "tiles.skipped": self.confirmed_skipped,
+                        "tiles.working_rows": self.tiles_working_rows})
+        return out
 
     def pick(self, state: SurfelState, frames: int) -> tuple:
         """(params, n_eff) for a dispatch of `frames` frames into `state`:
@@ -136,13 +158,13 @@ class DispatchPolicy:
 
     def queue_readback(self, state: SurfelState, frames: int) -> None:
         """Start the copy of (surfel_count, active_tile_count,
-        deferred_count) to the host without waiting for it (buckets or the
-        auto budget), charged for the dispatch's `frames` frames."""
+        deferred_count, skipped_tile_count) to the host without waiting for
+        it (buckets or the auto budget), charged for the dispatch's
+        `frames` frames at the last pick's budget."""
         if self.config.active_surfel_budget > 0:
             return
         self.readbacks.append(start_readback(torch.stack(
-            [state.surfel_count, state.active_tile_count,
-             state.deferred_count])) + (frames,))
+            readback_values(state))) + (frames, self.budget))
         self.unconfirmed_frames += frames
 
     def drain(self, max_outstanding: int) -> None:
@@ -152,7 +174,7 @@ class DispatchPolicy:
         sample ceil(growth / frames)."""
         pend = self.readbacks
         while pend:
-            values, event, frames = pend[0]
+            values, event, frames, budget = pend[0]
             fired = event is None or event.query()
             if not fired and len(pend) <= max_outstanding:
                 break
@@ -162,7 +184,10 @@ class DispatchPolicy:
                     tracer.wait("readback", block=event.synchronize)
                 else:
                     event.synchronize()
-            new_count, active_tiles, deferred = values.tolist()
+            new_count, active_tiles, deferred, self.confirmed_skipped = \
+                values.tolist()
+            self.tiles_active += active_tiles * frames
+            self.tiles_working_rows += budget * frames
             self.growth_window.append(
                 (new_count - self.confirmed_count + frames - 1) // frames)
             del self.growth_window[:-4]

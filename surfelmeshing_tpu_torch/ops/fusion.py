@@ -41,10 +41,11 @@ import torch
 import torch.distributed as dist
 
 from .. import resolve_device
-from . import association, integration
+from . import association, integration, tiling
 from .association import INVALID_INDEX, SUM_BITS
 from .blend import blend_core
 from .preprocess import sqrt_f32, to_i32_trunc
+from ..utils.timing import tracer
 
 # Constants fixed in the reference (kernels.cu:50-74).
 SURFEL_NORMAL_TO_VIEWING_DIR_THRESHOLD = 0.0
@@ -398,7 +399,8 @@ class StageTimer:
     non-donating probe step under jax.profiler and attributes traced
     device time to the columns instead, a TPU workaround with no
     counterpart here.  Work outside the eight phases (the tiling of
-    _integrate_tiled) falls in no column, as in the JAX package.
+    _integrate_tiled) falls in no column, as in the JAX package; the
+    tracer takes it from a timer of its own (dev.tiling.*).
 
     A timer's CUDA events go back to a free list of their device when the
     timer is dropped, for the next timers: creating and destroying an
@@ -596,8 +598,8 @@ def _integrate_tiled(state, depth, normals_xy, radius_img, color,
                      global_T_local, local_T_global, frame_index, params,
                      taps, stages, in_place: bool = False) -> SurfelState:
     """Active-set fusion (the JAX package's _integrate_tiled): gather the
-    tiles holding this frame's relevant surfels (creation frontier first,
-    then in-image or recently updated ones, up to the budget), run the
+    tiles holding the rows this frame may change (creation frontier
+    first, then the tiles ops/tiling.py flags, up to the budget), run the
     8-phase update on that working set, write the tiles back: into copies
     of the input's pack, neighbors and nbr_dist, or with `in_place` into
     the input's tensors themselves (integrate_frame_bucketed).  In place
@@ -605,12 +607,42 @@ def _integrate_tiled(state, depth, normals_xy, radius_img, color,
     before the first tile write (phase 6), and the working tiles were
     gathered into tensors of their own.
 
+    When no tile is skipped the result equals the full route's bit for
+    bit (pack, neighbors, nbr_dist and every counter), however long the
+    run: the working set holds every row the full route changes, and rows
+    outside it are read through the synced full pack, where they hold
+    what the full route holds.  On frame f with window W the full route
+    changes only
+      - the creation frontier (phase 7 writes rows [count, count + c));
+      - rows in the image (phases 3, 5 and 6 change no other row);
+      - in phase 8 (regularisation), a row whose stamp is >= f - W (its
+        smoothed position steps), or == f - W - 1 (it stepped on frame
+        f - 1 after its slot distances were computed, which are
+        recomputed now);
+      - in phase 8, a row with a slot pointing at a row whose stamp after
+        phases 3-7 is >= f - W - 1 (its recent-neighbour count RCNT, a
+        drift drop, or a slot distance from a position moved on this or
+        the last frame), or is 0 (fast_neighbor_update drops slots to
+        merge tombstones); a stamp changes in phases 3-7 only for rows
+        in the image, so a slot pointing at a row in the image counts
+        too;
+      - in phase 8, a row whose stored RCNT is not 0 while no slot points
+        at such a row: RCNT becomes 0 (its last recent neighbour left the
+        window, or was dropped after being counted on the frame before);
+      - without fast_neighbor_update, in phase 6's detach sweep a row
+        with a slot pointing at a row whose detach flag is set.
+    The flags (ops/tiling.py) test exactly these, on the input map.
+
     Tiles past the budget are skipped for the frame: their surfels go
     stale and their pixels may spawn duplicates, later merged; the count
     accumulates in skipped_tile_count.  The working set also holds unused
     slots when fewer tiles are wanted than the budget; they are filled
     with distinct tiles outside the set and written back unchanged, so
-    every write-back index is unique.
+    every write-back index is unique.  While the tracer is on and
+    `stages` times the step, the selection with the working-set gathers
+    and the write-back are the host spans tiling.select and
+    tiling.writeback and the device spans dev.tiling.select and
+    dev.tiling.writeback.
     """
     pack = state.pack
     n = pack.shape[0]
@@ -635,46 +667,15 @@ def _integrate_tiled(state, depth, normals_xy, radius_img, color,
             f"small for the creation frontier: needs at least "
             f"{(c_budget // ts + 1) * ts} (max_creations_per_frame + one "
             f"tile)")
-    dev = pack.device
-    count = state.surfel_count
-
-    # Tile flags: one elementwise pass over the capacity.
-    live = torch.arange(n, dtype=torch.int32, device=dev) < count
-    lx, ly, z = _transform(local_T_global, pack[:, PX], pack[:, PY],
-                           pack[:, PZ])
-    in_image = _project(params, lx, ly, z)[4]
-    recent = pack.view(torch.int32)[:, STAMP] >= \
-        frame_index - params.regularization_frame_window_size
-    tflags = (live & (in_image | recent)).view(t_n, ts).any(dim=1)
-
-    # Frontier tiles [surfel_count, surfel_count + c_budget) come first,
-    # then the flagged rest, capped at k_cap working slots.
-    tile_start = torch.arange(t_n, dtype=torch.int32, device=dev) * ts
-    frontier = (tile_start < count + c_budget) & (tile_start + ts > count)
-    f = frontier.to(torch.int32)
-    o = (tflags & ~frontier).to(torch.int32)
-    fpos = torch.cumsum(f, 0, dtype=torch.int32) - f
-    opos = torch.cumsum(o, 0, dtype=torch.int32) - o + fpos[-1] + f[-1]
-    pos = torch.where(frontier, fpos,
-                      torch.where(o > 0, opos, INVALID_INDEX))
-    selected = pos < k_cap
-    total_tiles = opos[-1] + o[-1]
-    skipped = (total_tiles - k_cap).clamp_min(0)
-
-    # Slot k holds tile src_tiles[k]: the selected tiles in slots
-    # [0, num_live), the first unselected tiles after them (t_n > k_cap).
-    num_live = selected.sum(dtype=torch.int32)
-    spare = (~selected).to(torch.int32)
-    spare_slot = num_live + torch.cumsum(spare, 0, dtype=torch.int32) - spare
-    slot = torch.where(selected, pos, spare_slot).clamp_max(k_cap)
-    src_tiles = torch.zeros(k_cap + 1, dtype=torch.int64, device=dev) \
-        .scatter_(0, slot.long(), torch.arange(t_n, device=dev))[:k_cap]
-    slot_live = torch.arange(k_cap, device=dev) < num_live
-    gidx = torch.where(
-        slot_live[:, None],
-        src_tiles.to(torch.int32)[:, None] * ts +
-        torch.arange(ts, dtype=torch.int32, device=dev), INVALID_INDEX) \
-        .reshape(-1)
+    traced = tracer.on and stages is not None
+    if traced:
+        span_id = frame_index if isinstance(frame_index, int) else -1
+        marks = StageTimer(pack.device)
+        tracer.begin("tiling.select", span_id)
+        marks("select")
+    sel = tiling.select(params, state, local_T_global, frame_index, k_cap,
+                        c_budget)
+    src_tiles, slot_live = sel.src_tiles, sel.slot_live
 
     # Whole-tile gathers of the working set.
     pack_w = pack.reshape(t_n, ts, PACK_WIDTH)[src_tiles] \
@@ -689,6 +690,9 @@ def _integrate_tiled(state, depth, normals_xy, radius_img, color,
     # gathered rows back).
     full = pack if in_place else \
         pack.clone(memory_format=torch.contiguous_format)
+    if traced:
+        marks(None)
+        tracer.end()
 
     def sync(pack_now):
         full.view(t_n, ts, PACK_WIDTH).index_copy_(0, src_tiles, torch.where(
@@ -699,11 +703,12 @@ def _integrate_tiled(state, depth, normals_xy, radius_img, color,
 
     wstate = dataclasses.replace(
         state, pack=pack_w, neighbors=nbr_w, nbr_dist=dist_w,
-        skipped_tile_count=state.skipped_tile_count + skipped,
-        active_tile_count=total_tiles)
+        skipped_tile_count=state.skipped_tile_count + sel.skipped,
+        active_tile_count=sel.total)
     out = _integrate_body(wstate, depth, normals_xy, radius_img, color,
                           global_T_local, local_T_global, frame_index,
-                          params, taps, stages, _Tiling(gidx, pack, sync))
+                          params, taps, stages,
+                          _Tiling(sel.gidx, pack, sync))
 
     def write_back(full_arr, work, before):
         arr = full_arr if in_place else \
@@ -713,10 +718,18 @@ def _integrate_tiled(state, depth, normals_xy, radius_img, color,
             before.view(4, k_cap, ts)))
         return arr
 
-    return dataclasses.replace(
+    if traced:
+        tracer.begin("tiling.writeback", span_id)
+        marks("writeback")
+    out = dataclasses.replace(
         out, pack=sync(out.pack),
         neighbors=write_back(state.neighbors, out.neighbors, nbr_w),
         nbr_dist=write_back(state.nbr_dist, out.nbr_dist, dist_w))
+    if traced:
+        marks(None)
+        tracer.end()
+        tracer.device(marks, "dev.tiling.", span_id)
+    return out
 
 
 def _integrate_body(state, depth, normals_xy, radius_img, color,

@@ -81,7 +81,7 @@ from .config import SurfelMeshingConfig
 from .dispatch import DispatchPolicy
 from .io.mesh_io import write_ply
 from .io.tum import RGBDVideo
-from .ops import association, blend, cuda_build, integration
+from .ops import association, blend, cuda_build, integration, tiling
 from .ops import preprocess as pp
 # integrate_frame_bucketed: chunk.FrameStep calls it; wrappers patch both.
 from .ops.fusion import (FusionParams, StageTimer, SurfelState,  # noqa: F401
@@ -274,7 +274,8 @@ class ReconstructionPipeline:
         """The counters the tracer reports (utils/timing.py), read where
         they live: the dispatch policy's (DispatchPolicy.counters), this
         pipeline's, and the process's blending, preprocessing,
-        association and integration kernel launches and kernel builds."""
+        association, integration and tile-selection kernel launches and
+        kernel builds."""
         return {**self.policy.counters(),
                 "graph_captures": self.graph_captures,
                 "graph_replays": self.graph_replays,
@@ -286,6 +287,7 @@ class ReconstructionPipeline:
                 "association_launches": sum(association.launches().values()),
                 "integration_launches":
                     integration.integrate_measurements.launches,
+                "tiling_launches": tiling.tile_flags.launches,
                 "kernel_builds": cuda_build.builds}
 
     def _log_device_memory(self) -> None:

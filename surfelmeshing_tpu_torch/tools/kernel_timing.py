@@ -665,3 +665,175 @@ def integration_times(inputs: dict, repeats: int = REPEATS) -> dict:
                 host_ms=host_ms(kernel, device, repeats),
                 plain_ms=device_ms(plain, 3),
                 plain_host_ms=host_ms(plain, device, 3), **bound)
+
+
+# The explore mix's room (benchmark/traffic/explore.live.json): metres.
+EXPLORE_ROOM = (10.0, 7.6, 2.6)
+
+
+def tiling_inputs(seed: int, capacity: int, live: int, height: int = 480,
+                  width: int = 640, focal: float = 525.0, frame: int = 900,
+                  window: int = 30, tile_size: int = 4096, fast: bool = True,
+                  room=EXPLORE_ROOM, device="cpu") -> dict:
+    """A seeded map for the tile selection (ops/tiling.py): `capacity`
+    rows, the first `live` of them surfels on the walls of a room in
+    creation order (_room_view), seen at frame `frame` by a camera near
+    its centre.  As in a capture, update stamps follow creation order: a
+    quarter of the runs of 16,384 rows were updated within the window,
+    the rest long before it.  Scattered among them, a few rows of each
+    kind the selection meets: stamps at the window's edge (frame - window
+    - 1, moved on the frame before), merge tombstones (stamp 0, radius
+    -1), stored recent-neighbour counts left on stale rows, detach flags,
+    neighbour slots anywhere in the map; the other slots point near in
+    creation order, about a third INVALID_INDEX.  Rows from `live` on are
+    unused (stamp -2^30, no slots).  -> dict: params (FusionParams), pack,
+    neighbors, surfel_count (0-d int32), local_T_global (3, 4) and frame
+    (int), tensors on `device`."""
+    F = fusion
+    rng = np.random.default_rng(seed)
+    pts, _, centre, axes = _room_view(rng, live, room)
+    rot = np.stack(axes)                 # rows: right, down, forward
+    pose = np.concatenate([rot, -(rot @ centre)[:, None]], 1)
+    pack = np.zeros((capacity, F.PACK_WIDTH), np.float32)
+    ints = pack.view(np.int32)
+    ints[:, F.STAMP] = -(2 ** 30)
+    pack[:live, F.PX:F.PZ + 1] = pts
+    recent = (rng.random(-(-live // 16384)) < 0.25)[np.arange(live) // 16384]
+    stamp = np.where(recent, frame - rng.integers(0, window + 1, live),
+                     frame - rng.integers(window + 2, 900, live))
+    rare = 2e-4
+    kind = rng.random(live)
+    stamp = np.where(kind < rare, frame - window - 1, stamp)
+    tomb = (kind >= rare) & (kind < 2 * rare)
+    ints[:live, F.STAMP] = np.where(tomb, 0, stamp)
+    pack[:live, F.RAD] = np.where(tomb, -1.0, 1e-5)
+    pack[:live, F.RCNT] = np.where(
+        (kind >= 2 * rare) & (kind < 3 * rare), rng.integers(1, 5, live), 0)
+    pack[:live, F.DETACH] = (kind >= 3 * rare) & (kind < 4 * rare)
+    slots = np.full((4, capacity), assoc.INVALID_INDEX, np.int32)
+    near = np.clip(np.arange(live) + rng.integers(-300, 300, (4, live)), 0,
+                   live - 1)
+    pick = rng.random((4, live))
+    slots[:, :live] = np.where(pick < 0.35, assoc.INVALID_INDEX, np.where(
+        pick < 0.35 + rare, rng.integers(0, live, (4, live)), near))
+    params = F.FusionParams(width=width, height=height, fx=focal, fy=focal,
+                            cx=width / 2, cy=height / 2,
+                            regularization_frame_window_size=window,
+                            tile_size=tile_size, fast_neighbor_update=fast)
+    return dict(params=params, pack=torch.from_numpy(pack).to(device),
+                neighbors=torch.from_numpy(slots).to(device),
+                surfel_count=torch.tensor(live, dtype=torch.int32,
+                                          device=device),
+                local_T_global=torch.from_numpy(pose.astype(np.float32))
+                .to(device), frame=frame)
+
+
+def tile_select(inputs: dict, plain: bool = False, **changes):
+    """One tile selection on `inputs` (tiling_inputs', with `changes`
+    replacing entries): tiling.tile_flags, or with `plain` its plain
+    version.  -> (n // tile_size,) bool."""
+    from ..ops import tiling
+    a = dict(inputs, **changes)
+    fn = tiling.tile_flags_reference if plain else tiling.tile_flags
+    return fn(a["params"], a["pack"], a["neighbors"], a["surfel_count"],
+              a["local_T_global"], a["frame"])
+
+
+def tiling_row_kinds(inputs: dict) -> dict:
+    """How many live rows of `inputs` each of the selection's tests flags
+    (a row may count under several), and how many none does."""
+    from ..ops import tiling
+    F = fusion
+    params, pack, nbr = inputs["params"], inputs["pack"], inputs["neighbors"]
+    n = int(inputs["surfel_count"])
+    pose, since = inputs["local_T_global"], \
+        inputs["frame"] - params.regularization_frame_window_size - 1
+    stamps = pack.view(torch.int32)[:, F.STAMP]
+    slot = F._safe_idx(nbr, pack.shape[0]).long()
+    valid = nbr != assoc.INVALID_INDEX
+    ns = stamps[slot]
+    kinds = dict(
+        in_view=tiling._in_view(params, pose, *pack[:, :3].unbind(1)),
+        in_window=stamps > since, window_edge=stamps == since,
+        recent_count=pack[:, F.RCNT] != 0,
+        neighbour_in_view=(valid & tiling._in_view(
+            params, pose, *(pack[:, c][slot] for c in range(3)))).any(0),
+        neighbour_in_window=(valid & (ns > since)).any(0),
+        neighbour_at_edge=(valid & (ns == since)).any(0),
+        neighbour_tombstone=(valid & (ns == 0)).any(0),
+        neighbour_detached=(valid & (pack[:, F.DETACH][slot] > 0)).any(0))
+    out = {k: int(v[:n].sum()) for k, v in kinds.items()}
+    flagged = tiling.row_flags_reference(
+        params, pack, nbr, inputs["surfel_count"], pose, inputs["frame"])
+    out["none"] = int((~flagged[:n]).sum())
+    return out
+
+
+def tiling_bound(inputs: dict) -> dict:
+    """The least time the card could take for the launch: the distinct
+    words of these inputs that the kernel's tests read, each once, and
+    the flag bytes it writes, at the HBM rate.  A live row's tests stop at
+    the first that flags it (csrc/tiling.cu's order): its stamp, then its
+    recent-neighbour count, then its position; then, slot by slot, the
+    slot and, for a valid one, the neighbour's stamp, detach flag (without
+    fast_neighbor_update) and position.  A word that several rows read
+    (a neighbour's stamp, a row's own position) counts once; one byte a
+    flagged tile."""
+    from ..ops import tiling
+    F = fusion
+    params, pack = inputs["params"], inputs["pack"]
+    nbr = inputs["neighbors"]
+    n = pack.shape[0]
+    live = torch.arange(n, device=pack.device) < inputs["surfel_count"]
+    since = inputs["frame"] - params.regularization_frame_window_size - 1
+    stamps = pack.view(torch.int32)[:, F.STAMP]
+    in_view = tiling._in_view(params, inputs["local_T_global"],
+                              *pack[:, :3].unbind(1))
+    read = {c: torch.zeros(n, dtype=torch.bool, device=pack.device)
+            for c in ("stamp", "rcnt", "pos", "detach")}
+    read["stamp"] |= live
+    flag = live & (stamps >= since)
+    read["rcnt"] |= live & ~flag
+    flag |= live & (pack[:, F.RCNT] != 0)
+    read["pos"] |= live & ~flag
+    flag |= live & in_view
+    slot_words = 0
+    for k in range(4):
+        reading = live & ~flag
+        slot_words += int(reading.sum())
+        j = nbr[k]
+        go = reading & (j != assoc.INVALID_INDEX)
+        s = F._safe_idx(j, n).long()[go]
+        read["stamp"][s] = True
+        ns = stamps[s]
+        hit = (ns >= since) | (ns == 0)
+        if not params.fast_neighbor_update:
+            read["detach"][s[~hit]] = True
+            hit |= pack[:, F.DETACH][s] > 0
+        read["pos"][s[~hit]] = True
+        hit |= in_view[s]
+        flag[go.nonzero().squeeze(1)[hit]] = True
+    words = slot_words + sum(
+        int(m.sum()) * (3 if c == "pos" else 1) for c, m in read.items())
+    tiles = int(flag.view(-1, params.tile_size).any(dim=1).sum())
+    nbytes = 4 * words + tiles
+    return dict(bytes=nbytes, bound_ms=1000.0 * nbytes / HBM_BYTES_PER_S)
+
+
+def tiling_times(inputs: dict, repeats: int = REPEATS) -> dict:
+    """The launch's device and host-inclusive ms on `inputs` (CUDA
+    tensors) and the launches of one call, its plain version's device and
+    host-inclusive ms (tile_flags_reference, 3 calls), and its bound."""
+    from ..ops import tiling
+    device = inputs["pack"].device
+    before = tiling.tile_flags.launches
+    tile_select(inputs)
+    launched = tiling.tile_flags.launches - before
+    kernel = functools.partial(tile_select, inputs)
+    plain = functools.partial(tile_select, inputs, plain=True)
+    return dict(call_launches=launched,
+                device_ms=device_ms(kernel, repeats),
+                host_ms=host_ms(kernel, device, repeats),
+                plain_ms=device_ms(plain, 3),
+                plain_host_ms=host_ms(plain, device, 3),
+                **tiling_bound(inputs))

@@ -24,17 +24,19 @@ object, no event, no synchronisation.  While it is on:
   reads the clock once and hands the reading to both (begin/end's `t`).
 - device spans (thread "device"): the CUDA events of StageTimers handed
   over by the pipeline (preprocessing passes, fusion phases, chunk
-  replays), placed on the host clock through one event synchronised at
-  start().  Those the device has passed are converted by poll(), which
-  each frame span calls; the rest by stop().  On the CPU a StageTimer
+  replays) and by the tiled route (dev.tiling.select, .writeback),
+  placed on the host clock through one event synchronised at start().
+  Those the device has passed are converted by poll(), which each frame
+  span calls; the rest by stop().  On the CPU a StageTimer
   reads the host clock and its spans are host times of the ops.
 - counters: host_waits by site, h2d_bytes.pageable / .pinned (input
   copies to the device), d2h_bytes (snapshot copies); the counters kept
-  elsewhere (creations made and deferred as the count readbacks confirm
-  them, graph captures and replays, bucket picks, snapshots and rows
-  shipped, blending, preprocessing, association and integration
-  launches, kernel builds) are read where they live, from every watched
-  pipeline, and reported as their change.
+  elsewhere (creations made and deferred and, under the auto active-set
+  budget, tiles active, skipped and working rows as the count readbacks
+  confirm them, graph captures and replays, bucket picks, snapshots and
+  rows shipped, blending, preprocessing, association, integration and
+  tile-selection launches, kernel builds) are read where they live, from
+  every watched pipeline, and reported as their change.
 - with start(profile=True) every host span is also a
   torch.profiler.record_function range, so a profiler trace shows the
   spans with the kernels they launched.

@@ -194,8 +194,9 @@ def test_growth_sample_per_frame_matches_jax():
              JaxPipeline(cfg, default_camera(W, H)))
     policy, ref = pipes[0].policy, pipes[1]
     for count, frames in ((1000, 3), (1905, 2)):
-        policy.readbacks.append(          # count, tiles, deferred
-            (torch.tensor([count, 0, 0], dtype=torch.int32), None, frames))
+        policy.readbacks.append(   # count, tiles, deferred, skipped
+            (torch.tensor([count, 0, 0, 0], dtype=torch.int32), None,
+             frames, 0))
         ref._pending_counts.append((jnp.array([count, 0], jnp.int32),
                                     frames))
         policy.unconfirmed_frames += frames

@@ -42,13 +42,14 @@ def policy(camera=None, **kw) -> DispatchPolicy:
 
 
 def counts(count=0, tiles=0, deferred=0, rows=CAP):
-    """A stand-in map: the three counters the policy reads back and a
-    pack of `rows` rows."""
+    """A stand-in map: the four counters the policy reads back (no tile
+    skipped) and a pack of `rows` rows."""
     def i32(v):
         return torch.tensor(v, dtype=torch.int32)
     return types.SimpleNamespace(
         pack=torch.empty((rows, 0)), surfel_count=i32(count),
-        active_tile_count=i32(tiles), deferred_count=i32(deferred))
+        active_tile_count=i32(tiles), deferred_count=i32(deferred),
+        skipped_tile_count=i32(0))
 
 
 def replay(p: DispatchPolicy) -> list:

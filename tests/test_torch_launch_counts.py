@@ -7,7 +7,7 @@ graph's counts added at each replay."""
 import pytest
 
 from surfelmeshing_tpu_torch.ops import association, blend, gather, \
-    integration, launch_counts  # noqa: F401 (integration registers itself)
+    integration, launch_counts, tiling  # noqa: F401 (each registers itself)
 from surfelmeshing_tpu_torch.ops import preprocess as pp
 
 
@@ -25,7 +25,7 @@ def test_every_kernel_wrapper_is_registered():
         "gather_rows", "gather_rows3", "gather_lane",
         *(f"preprocess_{k}" for k in pp.KERNELS),
         *(f"association_{k}" for k in association.KERNELS),
-        "integration"}
+        "integration", "tiling"}
     assert list(pp.KERNELS) == ["bilateral", "outlier", "erode", "normals",
                                 "radii"]
 

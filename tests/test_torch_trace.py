@@ -21,6 +21,7 @@ there is one.
 """
 
 import collections
+import dataclasses
 import json
 import os
 
@@ -217,7 +218,71 @@ def test_every_fused_frame_has_one_frame_span(runs, chunk):
         "snapshot_rows_shipped": pipe.snapshot_rows_shipped,
         "blend_launches": 0, "preprocess_launches": 0,
         "association_launches": 0, "integration_launches": 0,
+        "tiling_launches": 0, "kernel_builds": 0}]
+
+
+@pytest.mark.parametrize("chunk", [1, 4])
+def test_tiled_run_traces_its_selection(chunk):
+    """Under the auto active-set budget (tiles of 128 rows): per frame,
+    each frame fused on the tiled route (a budget below the capacity)
+    holds in its fusion span tiling.select, then
+    tiling.writeback, with the device spans dev.tiling.select and
+    dev.tiling.writeback; in both dispatch modes the tile counters are
+    the readbacks' sums (tiles.active: each frame's tile demand, a
+    sub-chunk's last frame's for each of its frames; tiles.working_rows:
+    each frame's budget; tiles.skipped: the map's count), and
+    tiling_launches is reported (0: the CPU launches no kernel)."""
+    cfg = SurfelMeshingConfig(**CONFIG, frame_chunk=chunk,
+                              active_surfel_budget=-1)
+    video, _ = synthetic_rgbd_video(FRAMES, W, H, noise_sigma=0.002)
+    pipe = PL.ReconstructionPipeline(cfg, video.depth_camera, "cpu")
+    pipe.fusion_params = dataclasses.replace(pipe.fusion_params,
+                                             tile_size=128)
+    active = rows = 0
+    tiled = []          # frames below the capacity: the tiled route
+    tracer.start()
+    try:
+        for i in range(FRAMES):
+            picks = len(pipe.policy.picks)
+            pipe.process_frame(video, i)
+            for frames, _ in pipe.policy.picks[picks:]:
+                active += frames * int(pipe._state.active_tile_count)
+                rows += frames * pipe.active_budget()
+                if pipe.active_budget() < 8192:
+                    tiled.append(i)
+        pipe.drain()
+    finally:
+        records = tracer.stop()
+    assert records["pipelines"] == [{
+        "creations.made": int(pipe.state.surfel_count),
+        "creations.deferred": int(pipe.state.deferred_count),
+        "tiles.active": active, "tiles.skipped": 0,
+        "tiles.working_rows": rows, "graph_captures": 0,
+        "graph_replays": 0, "bucket_picks": len(pipe.bucket_pick_log),
+        "snapshots": 0, "snapshot_rows_shipped": 0, "blend_launches": 0,
+        "preprocess_launches": 0, "association_launches": 0,
+        "integration_launches": 0, "tiling_launches": 0,
         "kernel_builds": 0}]
+    assert 0 < active and 0 < rows < len(pipe.bucket_pick_log) * 8192 * \
+        (4 if chunk > 1 else 1)
+    spans = records["spans"]
+    names = collections.Counter(s["name"] for s in spans)
+    assert len(tiled) > (0 if chunk > 1 else 2)
+    if chunk > 1:
+        assert not any(n.startswith(("tiling.", "dev.tiling."))
+                       for n in names)
+        return
+    assert names["tiling.select"] == names["tiling.writeback"] == \
+        names["dev.tiling.select"] == names["dev.tiling.writeback"] == \
+        len(tiled)
+    for k, s in enumerate(spans):
+        if s["name"] == "fusion":
+            inner = [c for c in children(spans, k) if c.startswith("tiling")]
+            assert inner == (["tiling.select", "tiling.writeback"]
+                             if s["id"] in tiled else [])
+    device = [s for s in spans if s["name"].startswith("dev.tiling.")]
+    assert sorted(s["id"] for s in device) == sorted(2 * tiled)
+    assert all(s["thread"] == "device" for s in device)
 
 
 @pytest.mark.parametrize("chunk", [1, 4])
