@@ -7,7 +7,8 @@ Phases, each printing one or more lines:
      its power limit, turns TF32 off;
   2. build: compiles csrc/blend.cu, blend_wide.cu (both with the shared
      header blend_common.cuh), gather.cu, l2_read.cu, preprocess.cu,
-     association.cu, integration.cu and tiling.cu (one nvcc each)
+     association.cu, integration.cu, regularization.cu and tiling.cu
+     (one nvcc each)
      and the native mesher (g++), all started together;
   3. kernel: the one-launch blending kernel bit for bit against its plain
      PyTorch version on seeded maps at 640x480 with radii 1, 2, 3, 6, 12
@@ -43,6 +44,12 @@ Phases, each printing one or more lines:
      meets among them, one launch a call, and its device, host-inclusive
      and plain times beside its bound at both shapes
      (tools/kernel_timing.py::integration_times);
+     regularization: csrc/regularization.cu's kernel bit for bit against
+     its plain version on seeded 7.5M- and 1.8M-row maps (1200x680
+     spacing) with fast_neighbor_update on and off, every kind of row and
+     slot phase 8 meets among them, one launch a call, and its device,
+     host-inclusive and plain times beside its bound at both sizes
+     (tools/kernel_timing.py::regularization_times);
      tiling: csrc/tiling.cu's tile selection bit for bit against its
      plain version on seeded maps of the default capacity (20,000,768
      rows) with 0.5M and 1.8M live rows, every kind of row the selection
@@ -53,7 +60,7 @@ Phases, each printing one or more lines:
      default settings over the 24-frame synthetic video, every frame with a
      full outlier window fused; launch counts, zeroed just before, prove
      the kernels ran: one blending launch and one of each preprocessing,
-     association and integration kernel a fused frame;
+     association, integration and regularisation kernel a fused frame;
   5. kernel on the slice's own blending inputs (captured through the taps
      on the last warm-up frame, the map holding surfels by then), bit for
      bit, and its device time on them; the same for the wide path at
@@ -100,7 +107,8 @@ Phases, each printing one or more lines:
      active-set budget (tools/bench_e2e.py's `20m:-1`): no tile may be
      skipped, every fused frame launches the blending kernel and the tile
      selection kernel once (e2e, count-sized, launches the latter not at
-     all), and the final state equals e2e's bit for bit; then, for the
+     all), both launch the regularisation kernel once a fused frame, and
+     the final state equals e2e's bit for bit; then, for the
      record, 4 frames of the full-shape 20M path (budget 0 with a bucket
      step of the capacity: every pass over 20M rows) timed with CUDA
      events;
@@ -140,8 +148,9 @@ Phases, each printing one or more lines:
      peak memory; bench_e2e's 20m:-1 loop at K = 4: 0 skipped tiles,
      state equal to [e2e]'s; the app with --frame_chunk 3: PLY equal to
      [app]'s; symmetric_regularization=False at K = 4 (eager on the card,
-     reported graph false) bit-identical to K = 1; one blending launch a
-     fused frame, replays included;
+     reported graph false, no regularisation kernel launched)
+     bit-identical to K = 1; one blending launch a fused frame, replays
+     included;
  16. batch: BASELINE config 5's count, 8 synthetic 640x480 sequences
      (distinct scene / trajectory pairs) at 500k capacity each, default
      settings, in lockstep over 12 fused frames through
@@ -227,6 +236,7 @@ from surfelmeshing_tpu_torch.ops import fusion as F
 from surfelmeshing_tpu_torch.ops import gather as G
 from surfelmeshing_tpu_torch.ops import integration as I
 from surfelmeshing_tpu_torch.ops import preprocess as pp
+from surfelmeshing_tpu_torch.ops import regularization as Reg
 from surfelmeshing_tpu_torch.ops import tiling
 from surfelmeshing_tpu_torch.parallel import shard
 from surfelmeshing_tpu_torch.pipeline import (ReconstructionPipeline,
@@ -245,7 +255,8 @@ from surfelmeshing_tpu_torch.viewer.probe import (MeshProbe, free_port,
 SCALE = 5000.0
 WARMUP_FRAMES = 4
 KERNEL_SOURCES = ("blend", "blend_wide", "gather", "l2_read",
-                  "preprocess", "association", "integration", "tiling")
+                  "preprocess", "association", "integration",
+                  "regularization", "tiling")
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM3 bytes/s and
 # f32 operations/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -560,6 +571,47 @@ def phase_integration(device) -> list:
     return out
 
 
+def phase_regularization(device) -> list:
+    """-> the kernels-line numbers of the regularisation kernel at each
+    map size."""
+    out = []
+    for rows in (REPLICA_ROWS, 1_800_000):
+        for fast in (True, False):
+            inp = kernel_timing.regularization_inputs(
+                7, rows, fast=fast, count=rows - 40_000, device=device)
+            got = kernel_timing.regularize(inp)
+            torch.cuda.synchronize()
+            want = kernel_timing.regularize(inp, plain=True)
+            check(all(bits_equal(g, x) for g, x in zip(got, want)),
+                  f"regularization at {rows} rows (fast_neighbor_update "
+                  f"{fast}) differs from its plain version")
+            kinds = kernel_timing.regularization_row_kinds(inp, got)
+            check(all(kinds.values()), f"regularization at {rows} rows: a "
+                  f"kind of row is missing: {kinds}")
+            del got, want
+            if not fast:
+                continue
+            r = kernel_timing.regularization_times(inp)
+            check(r["call_launches"] == 1, f"regularization: "
+                  f"{r['call_launches']} launches in a call")
+            print(f"[kernel] regularization, {rows} seeded rows ({kinds}), "
+                  f"bit-identical to its plain version with "
+                  f"fast_neighbor_update on and off, 1 launch a call; "
+                  f"device {r['device_ms']:.4f} ms, host-inclusive "
+                  f"{r['host_ms']:.4f} ms; plain PyTorch device "
+                  f"{r['plain_ms']:.4f} ms, host-inclusive "
+                  f"{r['plain_host_ms']:.4f} ms; bound {r['bound_ms']:.5f} "
+                  f"ms (bytes: {r['bytes']} B), "
+                  f"{100.0 * r['bound_ms'] / r['device_ms']:.1f}% of it "
+                  f"reached")
+            out.append(dict(r, name=f"regularization_{rows}",
+                            max_abs_err=0.0, library_ms=None,
+                            bound_by="bytes"))
+        del inp
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_tiling(device) -> list:
     """-> the kernels-line numbers of the tile selection kernel at each
     live count."""
@@ -701,6 +753,7 @@ def run_slice(device, video, cfg, modes=None, taps=None) -> dict:
                 preprocess=preprocess_counts("run_slice"),
                 association=A.launches(),
                 integration=I.integrate_measurements.launches,
+                regularization=Reg.regularize.launches,
                 wide_launches=blend.blend_core.wide_launches,
                 wide_kernels=blend.blend_core.wide_kernel_launches,
                 timed=timed, ms_frame=start.elapsed_time(end) / timed,
@@ -722,7 +775,8 @@ def phase_slice(device, video, seq) -> dict:
           f"{launches} blend launches, preprocessing launches "
           f"{run['preprocess']}, association launches "
           f"{run['association']}, integration launches "
-          f"{run['integration']}, surfel count {count}, overflow "
+          f"{run['integration']}, regularization launches "
+          f"{run['regularization']}, surfel count {count}, overflow "
           f"{int(pipe.state.overflow_count)}, {run['ms_frame']:.3f} ms/frame "
           f"(CUDA events over {run['timed']} frames after {WARMUP_FRAMES} "
           f"warm-up; host wall {run['wall_ms']:.3f} ms/frame), median "
@@ -738,10 +792,14 @@ def phase_slice(device, video, seq) -> dict:
           f"frames")
     check(run["integration"] == fused, f"integration launches "
           f"{run['integration']} for {fused} fused frames")
+    check(run["regularization"] == fused, f"regularization launches "
+          f"{run['regularization']} for {fused} fused frames")
     check(float(np.median(dist)) < 0.005, "surfels off the scene surface")
     return dict(launches=launches, fused=fused, taps=taps,
                 preprocess=run["preprocess"], association=run["association"],
-                integration=run["integration"], ms_frame=run["ms_frame"],
+                integration=run["integration"],
+                regularization=run["regularization"],
+                ms_frame=run["ms_frame"],
                 radius=pipe.fusion_params.measurement_blending_radius,
                 state=live_state(pipe.state))
 
@@ -1030,6 +1088,7 @@ def phase_build():
     pp.load_library()
     A.load_library()
     I.load_library()
+    Reg.load_library()
     engine.MeshingEngine()
     built = ", ".join(f"csrc/{name}.cu -> {path.name}"
                       for name, path in zip(KERNEL_SOURCES, paths))
@@ -1245,6 +1304,7 @@ def run_e2e(device, cfg, label: str) -> dict:
     wall = time.perf_counter() - t0
     launches = blend.blend_core.launches
     tiled = tiling.tile_flags.launches
+    regularized = Reg.regularize.launches
     preprocess = preprocess_counts(label)
     timed_captures = pipe.graph_captures - captures_before
     mesher.drain()
@@ -1279,7 +1339,8 @@ def run_e2e(device, cfg, label: str) -> dict:
     check(rows < max(snaps, 1) * surfels,
           f"{label}: delta snapshots shipped as many rows as full ones")
     return dict(summary=summary, split=split, launches=launches, fused=fused,
-                tiling=tiled, preprocess=preprocess,
+                tiling=tiled, regularization=regularized,
+                preprocess=preprocess,
                 budgets=budgets, picks=[n for _, n in pipe.bucket_pick_log],
                 chunks=[f for f, _ in pipe.bucket_pick_log],
                 graph_captures=pipe.graph_captures,
@@ -1294,9 +1355,13 @@ def phase_e2e(device) -> dict:
     run = run_e2e(device, e2e_config(500_000, 0), "e2e")
     print(f"[e2e] 640x480, 500k capacity, async meshing: {run['summary']}")
     print(f"[e2e] after the timed frames, {run['split']} (host clock); "
-          f"{run['tiling']} tile selection launches")
+          f"{run['tiling']} tile selection and {run['regularization']} "
+          f"regularization launches for {run['fused']} fused frames")
     check(run["tiling"] == 0, f"e2e: {run['tiling']} tile selection "
           f"launches on the count-sized route")
+    check(run["regularization"] == run["fused"], f"e2e: "
+          f"{run['regularization']} regularization launches for "
+          f"{run['fused']} fused frames")
     return run
 
 
@@ -1353,14 +1418,17 @@ def phase_e2e_20m(device, e2e) -> tuple:
           f"(-1), async meshing: {run['summary']}")
     print(f"[e2e-20m] budgets used {budgets}; final active tiles "
           f"{int(state['active_tile_count'])}, skipped tiles {skipped}; "
-          f"{run['launches']} blend and {run['tiling']} tile selection "
-          f"launches for {run['fused']} fused frames; {run['split']} (host "
-          f"clock)")
+          f"{run['launches']} blend, {run['tiling']} tile selection and "
+          f"{run['regularization']} regularization launches for "
+          f"{run['fused']} fused frames; {run['split']} (host clock)")
     check(skipped == 0, f"e2e-20m: {skipped} tiles skipped")
     check(run["launches"] == run["fused"], f"e2e-20m: {run['launches']} "
           f"blend launches for {run['fused']} fused frames")
     check(run["tiling"] == run["fused"], f"e2e-20m: {run['tiling']} tile "
           f"selection launches for {run['fused']} fused frames")
+    check(run["regularization"] == run["fused"], f"e2e-20m: "
+          f"{run['regularization']} regularization launches for "
+          f"{run['fused']} fused frames")
     want = e2e["state"]
     check(states_equal(state, want), "e2e-20m: final state differs from "
           "e2e's")
@@ -1870,6 +1938,7 @@ def phase_chunk(device, video, e2e, app) -> dict:
         pipe.drain()
         exact[chunk] = dict(state=live_state(pipe.state),
                             launches=blend.blend_core.launches,
+                            regularization=Reg.regularize.launches,
                             preprocess=preprocess_counts(
                                 f"[chunk] exact K={chunk}"),
                             graphs=pipe.graph_captures,
@@ -1881,14 +1950,19 @@ def phase_chunk(device, video, e2e, app) -> dict:
     print(f"[chunk] slice with symmetric_regularization=False, K=4: graph "
           f"{str(exact[4]['graph']).lower()} (eager on the card), "
           f"{exact[4]['graphs']} captures, sub-chunks {exact[4]['picks']}; "
-          f"{exact[4]['launches']} blend launches for {fused} fused frames; "
-          f"state bit-identical to K=1's: {equal}")
+          f"{exact[4]['launches']} blend and {exact[4]['regularization']} "
+          f"regularization launches for {fused} fused frames; state "
+          f"bit-identical to K=1's: {equal}")
     check(not exact[4]["graph"] and exact[4]["graphs"] == 0,
           "[chunk] symmetric_regularization=False was captured")
     check(equal, "[chunk] symmetric_regularization=False chunked state "
           "differs from per-frame")
     check(exact[4]["launches"] == fused, f"[chunk] exact regularization: "
           f"{exact[4]['launches']} blend launches for {fused} frames")
+    check(exact[4]["regularization"] == exact[1]["regularization"] == 0,
+          f"[chunk] exact regularization launched the symmetric kernel "
+          f"{exact[4]['regularization']} / {exact[1]['regularization']} "
+          f"times")
     launches += exact[4]["launches"]
     preprocess = add_counts(preprocess, exact[4]["preprocess"])
     print(f"[chunk] {launches} blend launches and preprocessing launches "
@@ -2377,6 +2451,7 @@ def run_phases(device, anchor) -> list:
     preprocess_rows = phase_preprocess(device)
     association_rows = phase_association(device)
     integration_rows = phase_integration(device)
+    regularization_rows = phase_regularization(device)
     tiling_rows = phase_tiling(device)
     video, seq = synthetic_rgbd_video(SLICE_FRAMES, 640, 480,
                                       noise_sigma=0.002)
@@ -2450,6 +2525,10 @@ def run_phases(device, anchor) -> list:
         kernels.append(kernel_entry(
             r["name"], "integration.cu", None, slice_run["integration"],
             slice_run["integration"] / slice_run["fused"], r))
+    kernels += [kernel_entry(r["name"], "regularization.cu", None,
+                             slice_run["regularization"],
+                             slice_run["regularization"] / slice_run["fused"],
+                             r) for r in regularization_rows]
     kernels += [kernel_entry(r["name"], "tiling.cu", None,
                              tiled_20m["tiling"],
                              tiled_20m["tiling"] / tiled_20m["fused"], r)

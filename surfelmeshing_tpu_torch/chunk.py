@@ -17,10 +17,14 @@ On the CPU the body is called directly; the tests exercise the code the
 card captures.  On a CUDA device each (frames, n_eff, FusionParams) key
 is captured once as a CUDA graph and replayed: one submission from the
 host for the sub-chunk's ~2,800 launches a frame, the role of JAX's
-(length, bucket) compile.  Before the first capture of a key the body
+(length, bucket) compile.  Before the first capture of a code path (the
+frames, the params, and whether n_eff covers the whole map) the body
 runs once on a scratch copy of the map (kernel libraries loaded, every
 op's device code loaded, cached constants built); neither the warm-up
-nor the capture advances the map.  Each graph draws on a memory pool of
+nor the capture advances the map.  A later bucket of the same path runs
+the same ops on more rows and is captured without one: its warm-up
+would load nothing new, and its scratch copy, a second map, would hold
+the step's peak device memory.  Each graph draws on a memory pool of
 its own (nothing allocated in a capture outlives it), freed with the
 graph.  A map growing through many buckets would otherwise pile up one
 graph and its pool a bucket: before a capture, the graphs whose n_eff
@@ -169,6 +173,7 @@ class ChunkStep:
         self.policy = policy
         self._buffers = None      # (depth, color, poses), at first run
         self._graphs = {}         # key -> (CUDAGraph, launch counts)
+        self._warmed = set()      # code paths whose body has run once
         self._bound = None        # the map the graphs write
         self._eager_logged = False
         self.retired = 0
@@ -190,6 +195,7 @@ class ChunkStep:
     def drop_graphs(self) -> None:
         """Forget every graph (the map they write is being replaced)."""
         self._graphs.clear()
+        self._warmed.clear()
         self._bound = None
 
     def run(self, state: SurfelState, entries: list, params: FusionParams,
@@ -306,16 +312,20 @@ class ChunkStep:
 
     def _capture(self, state: SurfelState, size: int, params: FusionParams,
                  n_eff: int) -> tuple:
-        """Warm the body up on a scratch copy of the map, then capture it
-        on the map; -> (graph, the launch counts one replay adds)."""
+        """Capture the body on the map, after a warm-up on a scratch copy
+        of it if its code path has not run; -> (graph, the launch counts
+        one replay adds)."""
         t0 = time.perf_counter()
         counts = launch_counts.snapshot()
-        current = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            self._body(clone_state(state), size, params, n_eff)
-        current.wait_stream(side)
+        path = (size, params, n_eff >= state.pack.shape[0])
+        if path not in self._warmed:
+            current = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                self._body(clone_state(state), size, params, n_eff)
+            current.wait_stream(side)
+            self._warmed.add(path)
         graph = torch.cuda.CUDAGraph()
         if tracer.on:             # torch.cuda.graph synchronises first
             tracer.wait("capture", block=stream_sync(self.device))

@@ -81,7 +81,8 @@ from .config import SurfelMeshingConfig
 from .dispatch import DispatchPolicy
 from .io.mesh_io import write_ply
 from .io.tum import RGBDVideo
-from .ops import association, blend, cuda_build, integration, tiling
+from .ops import (association, blend, cuda_build, integration,
+                  regularization, tiling)
 from .ops import preprocess as pp
 # integrate_frame_bucketed: chunk.FrameStep calls it; wrappers patch both.
 from .ops.fusion import (FusionParams, StageTimer, SurfelState,  # noqa: F401
@@ -274,8 +275,8 @@ class ReconstructionPipeline:
         """The counters the tracer reports (utils/timing.py), read where
         they live: the dispatch policy's (DispatchPolicy.counters), this
         pipeline's, and the process's blending, preprocessing,
-        association, integration and tile-selection kernel launches and
-        kernel builds."""
+        association, integration, regularisation and tile-selection
+        kernel launches and kernel builds."""
         return {**self.policy.counters(),
                 "graph_captures": self.graph_captures,
                 "graph_replays": self.graph_replays,
@@ -287,6 +288,8 @@ class ReconstructionPipeline:
                 "association_launches": sum(association.launches().values()),
                 "integration_launches":
                     integration.integrate_measurements.launches,
+                "regularization_launches":
+                    regularization.regularize.launches,
                 "tiling_launches": tiling.tile_flags.launches,
                 "kernel_builds": cuda_build.builds}
 

@@ -32,6 +32,12 @@ integration_times: both times of csrc/integration.cu's launch and of its
   bound; integration_inputs makes a seeded map's phase-5 inputs for it
   (and for the card tests), integration_row_kinds counts the kinds of
   rows a run met.
+
+regularization_times: both times of csrc/regularization.cu's launch and of
+  its plain version (ops/regularization.py::regularize_reference), beside
+  its bound; regularization_inputs makes a seeded map's phase-8 inputs for
+  it (and for the card tests), regularization_row_kinds counts the kinds
+  of rows and slots a run met.
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ from ..ops import association as assoc
 from ..ops import cuda_build, fusion
 from ..ops import integration as integ
 from ..ops import preprocess as pp
+from ..ops import regularization as reg
 
 REPEATS = 30
 WARMUP = 3
@@ -665,6 +672,223 @@ def integration_times(inputs: dict, repeats: int = REPEATS) -> dict:
                 host_ms=host_ms(kernel, device, repeats),
                 plain_ms=device_ms(plain, 3),
                 plain_host_ms=host_ms(plain, device, 3), **bound)
+
+
+REGULARIZATION_LAYOUTS = ("rows", "tiled", "bucket")
+_REG_TILE = 256
+
+
+def _wall_grid(rng, n: int, room) -> tuple:
+    """n surfels on the walls, floor and ceiling of a room in creation
+    order: each face a grid of one spacing (the room's surface area over
+    n, square-rooted), filled line by line, so a row's grid neighbours are
+    the rows 1 and one grid line away.  -> (points (n, 3), normals (n, 3),
+    the grid neighbours (4, n) int64: left, right, below, above, -1 where
+    off the face; the spacing), f64, metres."""
+    dims = [(1, 2, 0), (1, 2, 0), (0, 2, 1), (0, 2, 1), (0, 1, 2),
+            (0, 1, 2)]                    # (across, along, normal axis)
+    areas = np.array([room[i] * room[j] for i, j, _ in dims])
+    spacing = math.sqrt(areas.sum() / max(n, 1))
+    counts = np.floor(n * areas / areas.sum()).astype(np.int64)
+    counts[-1] += n - counts.sum()
+    pts, normals = np.zeros((n, 3)), np.zeros((n, 3))
+    grid = np.full((4, n), -1, np.int64)
+    start = 0
+    for f, (i, j, k) in enumerate(dims):
+        c = int(counts[f])
+        local = np.arange(c)
+        cols = max(int(room[i] / spacing), 1)
+        rows = slice(start, start + c)
+        pts[rows, i] = (local % cols + 0.5) * spacing
+        pts[rows, j] = (local // cols + 0.5) * spacing
+        pts[rows, k] = 0.0 if f % 2 == 0 else room[k]
+        normals[rows, k] = 1.0 if f % 2 == 0 else -1.0
+        for s, (step, ok) in enumerate((
+                (-1, local % cols > 0), (1, local % cols < cols - 1),
+                (-cols, local >= cols), (cols, local + cols < c))):
+            grid[s, rows] = np.where(ok, start + local + step, -1)
+        start += c
+    return pts, normals, grid, spacing
+
+
+def regularization_inputs(seed: int, n: int, frame: int = 500,
+                          window: int = 30, fast: bool = True,
+                          layout: str = "rows", count: int = None,
+                          room=ROOM, device="cpu") -> dict:
+    """A seeded map's phase-8 inputs, as ops/fusion.py::_regularize hands
+    them to ops/regularization.py::regularize: surfels on a grid over the
+    walls of a room (_wall_grid; ~3.8 mm apart at 7.5M rows), in creation
+    order, at frame `frame` with regularisation window `window`.  Rows at
+    or past `count` (all by default) are unused.  Slots point at grid
+    neighbours (about 30% INVALID_INDEX, 2% of rows with none), a few
+    anywhere among the used rows and a few out of the map's range;
+    smoothed positions sit ~2 mm off the raw ones, so some slots drift out
+    of range.  Update stamps are recent (inside the window) in half of the
+    runs of 4,096 rows; among them merged rows (radius -1), merge
+    tombstones (stamp 0, radius -1) and stored recent-neighbour counts of
+    0-4.  `layout`: "rows" (`gsrc` is `pack`, the full route), "tiled"
+    (`pack` is a working set of n rows rounded up to whole tiles of 256,
+    in permuted order, half the tiles of the map `gsrc`; slots hold the
+    map's indices) or "bucket" (the neighbour tensors the leading columns
+    of wider ones).  -> dict: params (FusionParams), pack, gsrc,
+    neighbors, nbr_dist, frame (int), tiles (the working tiles' indices in
+    the map, or None) and tile_size, tensors on `device`."""
+    F = fusion
+    rng = np.random.default_rng(seed)
+    n_map = n if layout != "tiled" else 2 * _REG_TILE * -(-n // _REG_TILE)
+    count = n_map if count is None else count
+    pts, normals, grid, spacing = _wall_grid(rng, n_map, room)
+    pack = np.zeros((n_map, F.PACK_WIDTH), np.float32)
+    ints = pack.view(np.int32)
+    pack[:, F.PX:F.PZ + 1] = pts
+    pack[:, F.SX:F.SZ + 1] = pts + rng.normal(0, 2e-3, (n_map, 3))
+    nrm = normals + rng.normal(0, 0.05, (n_map, 3))
+    pack[:, F.NX:F.NZ + 1] = nrm / np.linalg.norm(nrm, axis=1)[:, None]
+    pack[:, F.RCNT] = rng.integers(0, 5, n_map)
+    pack[:, F.CONF] = rng.uniform(0.5, 5.0, n_map)
+    pack[:, F.RAD] = (spacing * rng.uniform(0.7, 1.5, n_map)) ** 2
+    pack[:, F.CR:F.CB + 1] = rng.integers(0, 256, (n_map, 3))
+    recent = (rng.random(-(-n_map // 4096)) < 0.5)[np.arange(n_map) // 4096]
+    ints[:, F.STAMP] = np.where(recent,
+                                frame - rng.integers(0, window + 1, n_map),
+                                frame - rng.integers(window + 1, 900, n_map))
+    ints[:, F.CREATION] = ints[:, F.STAMP] - rng.integers(0, 300, n_map)
+    kind = rng.random(n_map)
+    pack[kind < 0.03, F.RAD] = -1.0                  # merged away
+    ints[kind < 0.01, F.STAMP] = 0                   # merge tombstones
+    live = np.arange(n_map) < count
+    pack[~live] = 0.0
+    ints[~live, F.STAMP] = -(2 ** 30)
+    pick = rng.random((4, n_map))
+    slots = np.where(pick < 0.3, -1, np.where(
+        pick < 0.3 + 1e-3, rng.integers(0, max(count, 1), (4, n_map)), grid))
+    slots = np.where((slots < count) & live[None, :], slots, -1)
+    slots = np.where((pick > 1 - 1e-4) & live[None, :],
+                     rng.choice([-5, n_map + 7], (4, n_map)), slots)
+    slots[:, rng.random(n_map) < 0.02] = -1          # no neighbours
+    slots = np.where(slots == -1, assoc.INVALID_INDEX, slots).astype(np.int32)
+    slot_dist = np.where(slots == assoc.INVALID_INDEX, np.inf,
+                         rng.uniform(0, 1e-4, (4, n_map))).astype(np.float32)
+    gsrc = torch.from_numpy(pack).to(device)
+    work, tiles = gsrc, None
+    if layout == "tiled":
+        order = rng.permutation(n_map // _REG_TILE)[:n_map // _REG_TILE // 2]
+        rows = (order[:, None] * _REG_TILE + np.arange(_REG_TILE)).reshape(-1)
+        tiles = torch.from_numpy(order).to(device)
+        work = gsrc[torch.from_numpy(rows).to(device)]
+        slots, slot_dist = slots[:, rows], slot_dist[:, rows]
+    wide = 4096 if layout == "bucket" else 0
+    neighbors, nbr_dist = (torch.from_numpy(np.pad(
+        a, ((0, 0), (0, wide)), constant_values=fill)).to(device)
+        [:, :work.shape[0]] for a, fill in ((slots, 7), (slot_dist, 0.5)))
+    params = F.FusionParams(width=1200, height=680, fx=REPLICA_FOCAL,
+                            fy=REPLICA_FOCAL, cx=600.0, cy=340.0,
+                            regularization_frame_window_size=window,
+                            fast_neighbor_update=fast)
+    return dict(params=params, pack=work, gsrc=gsrc, neighbors=neighbors,
+                nbr_dist=nbr_dist, frame=frame, tiles=tiles,
+                tile_size=_REG_TILE)
+
+
+def regularize(inputs: dict, plain: bool = False, iterations: int = 1,
+               frame=None):
+    """`iterations` phase-8 iterations on `inputs` (regularization_inputs'):
+    regularization.regularize, or with `plain` regularize_reference; the
+    map `gsrc` re-synced before each iteration after the first (the tiled
+    route's sync: the working tiles written into a copy of the map).
+    `frame` replaces the inputs' frame index (a 0-d int32 device tensor
+    for a graph capture).  -> (pack, neighbors, nbr_dist)."""
+    fn = reg.regularize_reference if plain else reg.regularize
+    pack, nbr, dist = inputs["pack"], inputs["neighbors"], inputs["nbr_dist"]
+    gsrc, tiles, ts = inputs["gsrc"], inputs["tiles"], inputs["tile_size"]
+    frame = inputs["frame"] if frame is None else frame
+    for it in range(iterations):
+        if tiles is None:
+            gsrc = pack
+        elif it > 0:
+            gsrc = gsrc.clone()
+            gsrc.view(-1, ts, fusion.PACK_WIDTH).index_copy_(
+                0, tiles, pack.view(-1, ts, fusion.PACK_WIDTH))
+        pack, nbr, dist = fn(pack, gsrc, nbr, dist, frame, inputs["params"])
+    return pack, nbr, dist
+
+
+def regularization_row_kinds(inputs: dict, out: tuple) -> dict:
+    """How many rows and slots of each kind a phase-8 run `out` on
+    `inputs` met (one iteration): rows inside the window (recent), merged
+    (radius -1) among them, rows outside it, rows with no valid slot;
+    recent rows' edges from a neighbour with a stored count of 0; valid
+    slots at a merge tombstone, at an index out of the map's range, and
+    slots dropped for drifting out of range (from the output); recent rows
+    whose smoothed position moved, and those among them whose step has
+    the length of the radius's square root to 0.1% (clamped; from the
+    output)."""
+    F = fusion
+    params, pack, gsrc = inputs["params"], inputs["pack"], inputs["gsrc"]
+    nbr = inputs["neighbors"]
+    since = inputs["frame"] - params.regularization_frame_window_size
+    recent = pack.view(torch.int32)[:, F.STAMP] >= since
+    valid = nbr != assoc.INVALID_INDEX
+    in_range = (nbr >= 0) & (nbr < gsrc.shape[0])
+    slot = F._safe_idx(nbr, gsrc.shape[0]).long()
+    n_stamp = gsrc.view(torch.int32)[:, F.STAMP][slot]
+    tombstone = valid & (n_stamp == 0)
+    dropped = valid & (out[1] == assoc.INVALID_INDEX)
+    kinds = dict(
+        recent=recent, merged_recent=recent & (pack[:, F.RAD] < 0),
+        outside_window=~recent, no_slots=~valid.any(0),
+        count_zero_edges=valid & recent[None, :] &
+        (gsrc[:, F.RCNT][slot] == 0),
+        tombstone_slots=tombstone, out_of_range_slots=valid & ~in_range,
+        drift_drops=dropped & ~tombstone,
+        moved=recent & (out[0][:, F.SX:F.SZ + 1] !=
+                        pack[:, F.SX:F.SZ + 1]).any(1),
+        clamped=recent & (pack[:, F.RAD] >= 0) &
+        ((out[0][:, F.SX:F.SZ + 1] - pack[:, F.SX:F.SZ + 1]).double()
+         .norm(dim=1) >= 0.999 * pack[:, F.RAD].double().clamp_min(0)
+         .sqrt()))
+    return {k: int(v.sum()) for k, v in kinds.items()}
+
+
+def regularization_bound(inputs: dict) -> dict:
+    """The least time the card could take for the launch: the distinct
+    bytes it reads and writes, at the HBM rate.  Every row: its pack row
+    in and out (72 + 72 B), its 4 slots in and out (16 + 16 B) and with
+    fast_neighbor_update its slot distances out (16 B); each distinct row
+    of `gsrc` that a slot gathers (a valid slot's, or any slot's of a
+    recent row: the plain gather's row 0 for an invalid index) once, 8
+    words (32 B), unless `gsrc` is the pack, whose rows are read whole
+    already."""
+    F = fusion
+    params, pack, gsrc = inputs["params"], inputs["pack"], inputs["gsrc"]
+    nbr = inputs["neighbors"]
+    n = pack.shape[0]
+    nbytes = (176 + 16 * params.fast_neighbor_update) * n
+    if gsrc.data_ptr() != pack.data_ptr():
+        since = inputs["frame"] - params.regularization_frame_window_size
+        recent = pack.view(torch.int32)[:, F.STAMP] >= since
+        need = (nbr != assoc.INVALID_INDEX) | recent[None, :]
+        rows = F._safe_idx(nbr, gsrc.shape[0])[need]
+        nbytes += 32 * int(rows.unique().numel())
+    return dict(bytes=nbytes, bound_ms=1000.0 * nbytes / HBM_BYTES_PER_S)
+
+
+def regularization_times(inputs: dict, repeats: int = REPEATS) -> dict:
+    """The launch's device and host-inclusive ms on `inputs` (CUDA
+    tensors) and the launches of one call, its plain version's device and
+    host-inclusive ms (regularize_reference, 3 calls), and its bound."""
+    device = inputs["pack"].device
+    before = reg.regularize.launches
+    regularize(inputs)
+    launched = reg.regularize.launches - before
+    kernel = functools.partial(regularize, inputs)
+    plain = functools.partial(regularize, inputs, plain=True)
+    return dict(call_launches=launched,
+                device_ms=device_ms(kernel, repeats),
+                host_ms=host_ms(kernel, device, repeats),
+                plain_ms=device_ms(plain, 3),
+                plain_host_ms=host_ms(plain, device, 3),
+                **regularization_bound(inputs))
 
 
 # The explore mix's room (benchmark/traffic/explore.live.json): metres.

@@ -286,6 +286,52 @@ def test_chunk_graphs_match_per_frame_on_cuda():
     assert_bit_identical(chunked.state, per_frame.state, counters=COUNTERS)
 
 
+def test_capture_warms_each_code_path_up_once(monkeypatch):
+    """ChunkStep._capture runs the body on a scratch copy of the map before
+    the first capture of a code path (frames, params, whole map or not)
+    only: a later bucket of the same path is captured directly, and a
+    replaced map warms up again.  The CUDA calls are stubbed so the
+    bookkeeping runs on the CPU (test_chunk_graphs_match_per_frame_on_cuda
+    and tests/test_torch_replica_kernels.py capture across buckets on the
+    card)."""
+    class Stub:
+        def __init__(self, *args, **kwargs):
+            pass
+
+        def wait_stream(self, other):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    for name in ("current_stream", "Stream", "stream", "CUDAGraph",
+                 "graph"):
+        monkeypatch.setattr(torch.cuda, name, Stub)
+    step = CH.ChunkStep(port_config(frame_chunk=4), torch.device("cpu"),
+                        None, None)
+    state = TF.create_surfel_state(CAP, "cpu")
+    calls = []
+    monkeypatch.setattr(step, "_body", lambda s, size, params, n_eff:
+                        calls.append((s is state, size, n_eff)))
+    cam = default_camera(W, H)
+    params = base_params(cam)
+    budget = dataclasses.replace(params, active_surfel_budget=4096)
+    for size, n_eff, p in ((4, 2048, params), (4, 4096, params),
+                           (3, 4096, params), (4, CAP, params),
+                           (4, 2048, budget), (4, 6144, params)):
+        step._capture(state, size, p, n_eff)
+    warm = [(size, n_eff) for on_map, size, n_eff in calls if not on_map]
+    assert warm == [(4, 2048), (3, 4096), (4, CAP), (4, 2048)]
+    assert sum(on_map for on_map, _, _ in calls) == step.captures == 6
+    step.drop_graphs()
+    calls.clear()
+    step._capture(state, 4, params, 4096)
+    assert [on_map for on_map, _, _ in calls] == [False, True]
+
+
 # -- the auto budget of a chunk ---------------------------------------------
 
 def test_chunk_auto_budget_charges_its_frames():

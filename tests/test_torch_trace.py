@@ -218,7 +218,8 @@ def test_every_fused_frame_has_one_frame_span(runs, chunk):
         "snapshot_rows_shipped": pipe.snapshot_rows_shipped,
         "blend_launches": 0, "preprocess_launches": 0,
         "association_launches": 0, "integration_launches": 0,
-        "tiling_launches": 0, "kernel_builds": 0}]
+        "regularization_launches": 0, "tiling_launches": 0,
+        "kernel_builds": 0}]
 
 
 @pytest.mark.parametrize("chunk", [1, 4])
@@ -261,8 +262,8 @@ def test_tiled_run_traces_its_selection(chunk):
         "graph_replays": 0, "bucket_picks": len(pipe.bucket_pick_log),
         "snapshots": 0, "snapshot_rows_shipped": 0, "blend_launches": 0,
         "preprocess_launches": 0, "association_launches": 0,
-        "integration_launches": 0, "tiling_launches": 0,
-        "kernel_builds": 0}]
+        "integration_launches": 0, "regularization_launches": 0,
+        "tiling_launches": 0, "kernel_builds": 0}]
     assert 0 < active and 0 < rows < len(pipe.bucket_pick_log) * 8192 * \
         (4 if chunk > 1 else 1)
     spans = records["spans"]
