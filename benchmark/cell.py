@@ -329,6 +329,7 @@ class Run:
         for key, value in (overrides or {}).items():
             part, _, name = key.partition(".")
             getattr(self, part)[name] = value
+        rstep.refuse_unchecked(self.config["settings"])
         self.workload, self.seed = workload, seed
         self.seconds, self.trace = seconds, trace
         self.t0 = t_process_start
@@ -447,11 +448,17 @@ class Run:
     def traced_stretch(self) -> dict:
         """A further stretch of the same loop under the profiler (CUDA
         activity only, so the host runs at its own pace), from an idle
-        device to an idle device."""
-        self.pipe.drain()
+        device to an idle device.  Besides the trace's summary: `n_eff`,
+        the rows each frame fused in the stretch ran over (the pipeline's
+        bucket picks), and `surfels`, the live count at its start and
+        end, read outside the profiled stretch."""
+        pipe = self.pipe
+        pipe.drain()
         cuda = self.device.type == "cuda"
         if cuda:
             torch.cuda.synchronize(self.device)
+        picks0 = len(pipe.bucket_pick_log)
+        count0 = pipe.surfel_count()
         prof = devtrace.profiler(cuda)
         prof.start()
         t_mark = devtrace.mark(self.device)
@@ -463,6 +470,8 @@ class Run:
         prof.stop()
         summary = devtrace.read(prof, win.spans, t_mark, t0, t1)
         summary["frames"] = len(win.fused)
+        summary["n_eff"] = per_frame_n_eff(pipe.bucket_pick_log[picks0:])
+        summary["surfels"] = (count0, pipe.surfel_count())
         return summary
 
     # -- correctness -----------------------------------------------------

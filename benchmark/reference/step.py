@@ -27,6 +27,62 @@ from . import preprocess as pp
 from .se3 import SE3
 
 
+# The fusion modes a deployment may state, under FusionParams's names; an
+# absent one takes FusionParams's default.
+MODES = ("symmetric_regularization", "exact_conflict_arbitration",
+         "fast_neighbor_update")
+
+# Settings the reference reads: fusion_params, preprocess_kwargs, capacity
+# and ReferenceFusion here, adaptive_creation_bound in cell.Run.check
+# (whether the program's bucket may defer creations).
+READ = frozenset({
+    "depth_scaling", "pyramid_level", "start_frame", "max_surfel_count",
+    "sensor_noise_factor", "max_surfel_confidence", "regularizer_weight",
+    "normal_compatibility_threshold_deg", "regularization_frame_window_size",
+    "do_blending", "measurement_blending_radius",
+    "regularization_iterations_per_integration_iteration",
+    "radius_factor_for_regularization_neighbors",
+    "surfel_integration_active_window_size", "max_creations_per_frame",
+    "active_surfel_budget", "adaptive_creation_bound", "max_depth",
+    "depth_valid_region_radius", "observation_angle_threshold_deg",
+    "depth_erosion_radius", "median_filter_and_densify_iterations",
+    "outlier_filtering_frame_count", "outlier_filtering_required_inliers",
+    "bilateral_filter_sigma_xy", "bilateral_filter_radius_factor",
+    "bilateral_filter_sigma_depth_factor",
+    "outlier_filtering_depth_tolerance_factor",
+    "point_radius_extension_factor", "point_radius_clamp_factor", *MODES})
+# Settings the reference reads that it runs at one value only.
+ONLY = {"pyramid_level": 0, "start_frame": 0}
+# Settings that by design change no word of the map or of the mesher's
+# view, so the reference has nothing to read in them: pacing
+# (restrict_fps_to: the app's frame timer), dispatch (shape_bucket_step:
+# the rows a frame runs over, held by the check's bucket test;
+# max_inflight_dispatches: readbacks outstanding), the overflow abort (the
+# app's), the transfer format (delta_surfel_transfer: delta or full
+# snapshots rebuild the same view) and the mesher's triangulation
+# thresholds and scheduling (meshing/driver.py, app/main.py).
+UNCHECKED = frozenset({
+    "restrict_fps_to", "shape_bucket_step", "max_inflight_dispatches",
+    "abort_on_surfel_overflow", "delta_surfel_transfer",
+    "max_angle_between_normals_deg", "min_triangle_angle_deg",
+    "max_triangle_angle_deg", "max_neighbor_search_range_increase_factor",
+    "long_edge_tolerance_factor", "max_surfels_per_node",
+    "asynchronous_triangulation", "full_meshing_every_frame"})
+
+
+def refuse_unchecked(settings: dict) -> None:
+    """Raise ValueError naming every setting the reference can neither
+    read nor leave aside, and every one it reads at a value it does not
+    run: a check that ignored it would judge another deployment."""
+    unknown = sorted(set(settings) - READ - UNCHECKED)
+    if unknown:
+        raise ValueError(f"settings the reference cannot check: {unknown}")
+    for key, value in ONLY.items():
+        if settings.get(key, value) != value:
+            raise ValueError(f"the reference runs {key} {value} only, not "
+                             f"{settings[key]!r}")
+
+
 def capacity(settings: dict) -> int:
     """The map's capacity: max_surfel_count, rounded up to whole tiles
     when an active-surfel budget is set."""
@@ -40,7 +96,8 @@ def capacity(settings: dict) -> int:
 
 def fusion_params(settings: dict, camera: dict) -> fu.FusionParams:
     """FusionParams of the deployment, without an active-surfel budget:
-    the tiled step equals the full-shape one when no tile is skipped."""
+    the tiled step equals the full-shape one when no tile is skipped.
+    The fusion modes (MODES) the settings state are passed on."""
     s = settings
     return fu.FusionParams(
         width=camera["width"], height=camera["height"],
@@ -62,7 +119,8 @@ def fusion_params(settings: dict, camera: dict) -> fu.FusionParams:
         surfel_integration_active_window_size=(
             s["surfel_integration_active_window_size"]),
         active_surfel_budget=0,
-        max_creations_per_frame=s["max_creations_per_frame"])
+        max_creations_per_frame=s["max_creations_per_frame"],
+        **{k: s[k] for k in MODES if k in s})
 
 
 def preprocess_kwargs(settings: dict, camera: dict) -> dict:
@@ -106,9 +164,8 @@ class ReferenceFusion:
 
     def __init__(self, settings: dict, camera: dict, frames, device,
                  low_precision: bool = False):
-        if settings["pyramid_level"] != 0:
-            raise ValueError("the reference runs pyramid level 0 only")
-        self.settings = settings
+        refuse_unchecked(settings)
+        self.settings, self.camera = settings, camera
         self.frames = frames
         self.device = torch.device(device)
         self.params = fusion_params(settings, camera)
@@ -144,11 +201,9 @@ class ReferenceFusion:
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)) \
             .to(self.device)
 
-    def step(self, state: fu.SurfelState, i: int, n_eff: int
-             ) -> fu.SurfelState:
-        """Frame i fused into `state` over its first n_eff rows; the
-        input's tensors are written in place, as the count-sized step
-        does."""
+    def frame_inputs(self, i: int) -> tuple:
+        """What the fusion step of frame i takes: the preprocessed depth,
+        normals and radii, the colour image and the pose both ways."""
         depth = self._depth(i)
         others = torch.stack([self._depth(i + o) for o in self._offsets()])
         d, nrm, rad = pp.preprocess_frame(
@@ -158,10 +213,16 @@ class ReferenceFusion:
             self.frames.color[i % self.frames.period].transpose(2, 0, 1))) \
             .to(self.device)
         pose = self._pose(i)
-        t_gl = self._tensor(pose.matrix3x4())
-        t_lg = self._tensor(pose.inverse().matrix3x4())
-        out = fu.integrate_frame_bucketed(state, d, nrm, rad, color, t_gl,
-                                          t_lg, i, self.params, int(n_eff))
+        return (d, nrm, rad, color, self._tensor(pose.matrix3x4()),
+                self._tensor(pose.inverse().matrix3x4()))
+
+    def step(self, state: fu.SurfelState, i: int, n_eff: int
+             ) -> fu.SurfelState:
+        """Frame i fused into `state` over its first n_eff rows; the
+        input's tensors are written in place, as the count-sized step
+        does."""
+        out = fu.integrate_frame_bucketed(state, *self.frame_inputs(i), i,
+                                          self.params, int(n_eff))
         if self.low_precision:
             round_to_bfloat16(out)
         return out

@@ -12,9 +12,11 @@ a profiled stretch after the window.  Diagnostics go to standard error
 and to earlier lines of standard output; the last lines of standard
 error are the numbers compared, each beside its limit.
 
-Exits non-zero without a result when no card (or fewer than the cell
-asks for) is present, and when a module of JAX or of the JAX package is
-loaded once the run is over.
+Exits non-zero without a result, before any frame is rendered, when
+the configuration states a setting the plain reference can neither read
+nor leave aside (reference/step.py::refuse_unchecked; the message names
+it); when no card (or fewer than the cell asks for) is present; and when
+a module of JAX or of the JAX package is loaded once the run is over.
 """
 
 import time
@@ -101,9 +103,15 @@ def main(argv=None) -> int:
 
     from benchmark import cell as cellmod
     from benchmark import stats
+    from benchmark.reference import step as rstep
 
     bench = cellmod.manifest()
     entry, config, _ = cellmod.find_cell(args.workload, bench)
+    try:
+        rstep.refuse_unchecked(config["settings"])
+    except ValueError as e:
+        print(f"benchmark: cell {args.workload}: {e}", file=sys.stderr)
+        return 5
     chips = entry["chips"]
     if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
         print(f"benchmark: cell {args.workload} needs {chips} CUDA "
@@ -127,7 +135,9 @@ def main(argv=None) -> int:
         ctx = {"window": win, "trace": trace,
                "frame_shape": (config["camera"]["height"],
                                config["camera"]["width"]),
-               "peaks": stats.peaks()}
+               "peaks": stats.peaks(),
+               "n_eff": trace["n_eff"], "surfels": trace["surfels"],
+               "settings": cellmod.program_settings(config)}
         for m in bench["per_layer"]:
             if applies(m, args.workload):
                 value = load_reader(m["name"])(ctx)

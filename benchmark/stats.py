@@ -73,6 +73,20 @@ def blend_bytes(height: int, width: int) -> int:
     return 5 * 4 * height * width
 
 
+# Bytes the regularisation kernel must move for a row it steps: the row's
+# 18-word pack row read and written, its four neighbour slots read and
+# written, its four slot distances written (f32 and int32 words).
+REGULARIZE_ROW_BYTES = (2 * 18 + 2 * 4 + 4) * 4
+
+
+def regularize_bytes(rows: int, iterations: int) -> int:
+    """Bytes the regularisation kernel must move for a frame stepped over
+    `rows` rows, one launch an iteration.  On the count-sized and
+    full-shape routes the neighbours' gathered words lie in pack rows
+    read already."""
+    return REGULARIZE_ROW_BYTES * rows * iterations
+
+
 def roofline_pct(bytes_moved: float, ops: float, seconds: float,
                  peak: dict) -> float:
     """A kernel's share of its roofline, in %: the least time its bytes

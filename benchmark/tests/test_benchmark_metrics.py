@@ -80,7 +80,10 @@ def _ctx(trace=True):
     tr["frames"] = 2
     return {"window": win, "trace": tr if trace else None,
             "frame_shape": (480, 640),
-            "peaks": stats.peaks()}
+            "peaks": stats.peaks(), "n_eff": [1_048_576, 1_114_112],
+            "surfels": (1_000_000, 1_030_000),
+            "settings": {
+                "regularization_iterations_per_integration_iteration": 1}}
 
 
 def test_readers():
@@ -104,6 +107,57 @@ def test_readers_return_nothing_without_something_to_read():
     ctx = _ctx()
     ctx["trace"]["kernels"] = {"other": (1.0, 1)}
     assert load_reader("blend_roofline_pct")(ctx) is None
+
+
+def _regularize_ctx(kernels, n_eff=(1_048_576, 1_114_112), iterations=1):
+    ctx = _ctx()
+    ctx["trace"]["kernels"] = kernels
+    ctx["n_eff"] = list(n_eff)
+    ctx["settings"] = {
+        "regularization_iterations_per_integration_iteration": iterations}
+    return ctx
+
+
+def test_regularize_roofline_reads_the_rows_stepped():
+    read = load_reader("regularize_roofline_pct")
+    assert stats.regularize_bytes(1, 1) == 192
+    rows = 1_048_576 + 1_114_112
+    # 192 B a row over both frames' rows at 3.35 TB/s, over the kernel's
+    # 0.2 ms in the stretch (other kernels ignored).
+    kernels = {"regularize_kernel(RegularizeArgs)": (0.2e-3, 2),
+               "blend_kernel": (1.0, 2)}
+    want = 100 * 192 * rows / 3.35e12 / 0.2e-3
+    assert read(_regularize_ctx(kernels)) == pytest.approx(want)
+    # Two iterations a frame: twice the launches and twice the bytes.
+    kernels["regularize_kernel(RegularizeArgs)"] = (0.4e-3, 4)
+    assert read(_regularize_ctx(kernels, iterations=2)) == \
+        pytest.approx(want)
+    # The dotted name of the Replica cell reads with the same reader.
+    assert load_reader("regularize_roofline_pct.replica")(
+        _regularize_ctx(kernels, iterations=2)) == pytest.approx(want)
+
+
+def test_regularize_roofline_returns_nothing_without_something_to_read():
+    read = load_reader("regularize_roofline_pct")
+    # The exact form launches no kernel; a stretch with no frame fused.
+    assert read(_regularize_ctx({"blend_kernel": (1.0, 2)})) is None
+    assert read(_regularize_ctx(
+        {"regularize_kernel": (0.2e-3, 2)}, n_eff=())) is None
+    assert read(dict(_regularize_ctx({"regularize_kernel": (1e-3, 2)}),
+                     trace=None)) is None
+
+
+def test_traced_stretch_hands_readers_its_rows():
+    """A tiny traced run on the CPU: the stretch's n_eff is one entry per
+    frame fused in it, each holding the live count, and the live count at
+    its start and end brackets the growth."""
+    import tiny_cell
+    r, out = tiny_cell.run("tum640_2m.loop.replay", trace=True)
+    tr = out["trace"]
+    assert tr["frames"] > 0 and len(tr["n_eff"]) == tr["frames"]
+    start, end = tr["surfels"]
+    assert 0 < start <= end
+    assert min(tr["n_eff"]) >= start and max(tr["n_eff"]) <= 40_960
 
 
 def test_mesher_view_and_triangles():
